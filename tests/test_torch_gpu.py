@@ -1,0 +1,70 @@
+"""Port kernels against their plain versions on the card.
+
+A CUDA kernel has no interpret mode: these tests need a card and skip
+without one (decided inside the fixture, never at import).  Run them on
+the card with ``python -m pytest tests/test_torch_gpu.py -q``;
+``chip_smoke.py`` drives the same checks at the main path's shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from joltqc_tpu_torch.ops.accum_tile import (
+    _supertile, accum_tile_plain, fused_contract_tile, tile_limbs_to_f64,
+)
+from joltqc_tpu_torch.ops.eri import eri_chunk
+from joltqc_tpu_torch.ops.md import eri_plain
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("tier,tol", [("f32", 2e-5), ("fp64", 1e-12)])
+@pytest.mark.parametrize("ls,nprims", [
+    ((0, 0, 0, 0), (3, 3, 3, 3)),
+    ((1, 1, 1, 1), (1, 3, 1, 1)),
+    ((2, 2, 2, 2), (1, 1, 1, 1)),
+    ((4, 2, 1, 0), (1, 1, 1, 1)),
+])
+def test_eri_kernel_matches_plain(cuda, tier, tol, ls, nprims):
+    dt = torch.float32 if tier == "f32" else torch.float64
+    rng = np.random.default_rng(sum(ls))
+    q = {}
+    for x, npx in zip("abcd", nprims):
+        q[f"coord_{x}"] = rng.standard_normal((256, 3))
+        q[f"exps_{x}"] = rng.uniform(0.3, 3.0, (256, npx))
+        q[f"coefs_{x}"] = rng.standard_normal((256, npx))
+    q = {k: torch.as_tensor(v, dtype=dt, device=cuda) for k, v in q.items()}
+    got = eri_chunk(tier, ls, nprims, q, 0.0)
+    ref = eri_plain(ls, nprims, q, 0.0)
+    assert float((got - ref).abs().max() / ref.abs().max()) < tol
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_accum_kernel_matches_plain_and_is_order_free(cuda, dt):
+    rng = np.random.default_rng(3)
+    T, W, nfxy, nfo = 4096, 64, 9, 9
+    G = torch.as_tensor(rng.standard_normal((T, nfxy, nfo)), dtype=dt,
+                        device=cuda)
+    d = torch.as_tensor(rng.standard_normal((T, nfo)), dtype=dt, device=cuda)
+    lx = torch.as_tensor(rng.integers(0, W, T), dtype=torch.int32,
+                         device=cuda)
+    ly = torch.as_tensor(rng.integers(0, W, T), dtype=torch.int32,
+                         device=cuda)
+    bound = float(G.abs().max() * d.abs().max() * nfo * 2)
+    a, e = fused_contract_tile(G, d, lx, ly, W, W, bound)
+    p, _ = _supertile(accum_tile_plain, G, d, lx, ly, W, W, bound)
+    tol = 1e-13 if dt == torch.float64 else 1e-6
+    err = (tile_limbs_to_f64(a, e) - tile_limbs_to_f64(p, e)).abs().max()
+    assert float(err) < tol * bound
+    perm = torch.randperm(T, device=cuda)
+    b, _ = fused_contract_tile(G[perm].contiguous(), d[perm].contiguous(),
+                               lx[perm], ly[perm], W, W, bound)
+    assert torch.equal(a, b)
