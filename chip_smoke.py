@@ -8,9 +8,13 @@ Phases, each printed with its result and wall time on its own line:
                 card's name and power limit from nvidia-smi;
   2. eri        kernel A (csrc/eri.cu) against its plain PyTorch version
                 on the card, both tiers and omega > 0;
-  3. accum      kernel B (csrc/accum_tile.cu) against its plain version;
+  3. accum      kernels B and C (csrc/accum_tile.cu) and D
+                (csrc/accum_block.cu) against their plain versions;
                 bit-identical limbs across runs and task permutations;
   4. anchors    RHF H2O/sto-3g and H2O/6-31g against their energies;
+                H2O/sto-3g get_jk in the three accumulation modes with
+                omega, hermi=0 and a stack against the dense oracle;
+                incremental RHF against the direct energy;
   5. full       RHF 0029-elongated-halogenated/6-31g* (302 AO) to
                 convergence against its recorded energy, with every
                 kernel launch counted; get_jk twice on the converged
@@ -18,9 +22,16 @@ Phases, each printed with its result and wall time on its own line:
                 the plan launches is held against its plain version on a
                 chunk of that path, and each kernel and its plain version
                 are timed at the shapes of that path;
-  6. a "kernels" JSON line; the last line is the device JSON.
+  6. modes      at the same 302 AO, on the converged density: get_jk of a
+                scatter and a block engine against the tile path's, with
+                kernel D's launches counted; hermi=0, omega and a stack;
+                kernels C and D held against their plain versions and
+                timed on chunks of that path; incremental RHF against the
+                direct run;
+  7. a "kernels" JSON line; the last line is the device JSON.
 Any failed phase makes the script exit nonzero.  Options: --only PHASES
-(comma list, for debugging: build,eri,accum,anchors,full).
+(comma list, for debugging: build,eri,accum,anchors,full,modes; modes
+runs the 0029 SCF itself when full is left out).
 """
 
 from __future__ import annotations
@@ -60,6 +71,9 @@ ERI_CASES = [  # (ls, nprims)
 ]
 ERI_TOL = {"f32": 2e-5, "fp64": 1e-12}  # of the block's max |value|
 ACC_TOL = {"f32": 1e-6, "fp64": 1e-13}  # of the static bound 2^e
+# J/K of two accumulation modes on one density, of max(|J|, 1): the
+# reference's bounds (tests/test_jk_engine.py, tile and block vs scatter)
+MODE_TOL = {"tile": 1e-9, "block": 1e-11}
 
 
 class PhaseError(RuntimeError):
@@ -209,8 +223,94 @@ def phase_accum(ctx):
                                         lyt[perm], W, W, bound)
         check(torch.equal(limbs, limbs2), "accum: runs differ")
         check(torch.equal(limbs, limbs3), "accum: permutation changes bits")
-    return (f"max |kernel - plain| / bound {worst:.3e} (fp64, tol 1e-13); "
-            "repeat and permuted runs bit-identical")
+    worst_c, worst_d = _accum_cd(dev, rng)
+    return (f"max |kernel - plain| / bound: B {worst:.3e}, C {worst_c:.3e}, "
+            f"D {worst_d:.3e} (fp64, tol 1e-13); repeat and permuted runs "
+            "bit-identical")
+
+
+def _permuted(perm, *tensors):
+    """The tensors with their tasks (axis 0) in the order ``perm``; None
+    leaves them as they are."""
+    return [t if perm is None else t[perm].contiguous() for t in tensors]
+
+
+def _held(dev, what, tier, e, shape, T, launch, plain):
+    """One accumulation kernel against its plain version: ``launch(acc,
+    perm)`` and ``plain(acc)`` add into a zeroed int64 ``acc`` of
+    ``shape`` (perm: a task permutation or None).  Fails past ACC_TOL of
+    2^e, or if a second or a permuted launch changes a bit.  Returns the
+    max abs error and the two accumulators (kernel, plain)."""
+    import torch
+    from joltqc_tpu_torch.ops.accum import limbs_to_f64
+
+    accs = [torch.zeros(shape, dtype=torch.int64, device=dev)
+            for _ in range(4)]
+    launch(accs[0], None)
+    plain(accs[1])
+    launch(accs[2], None)
+    launch(accs[3], torch.randperm(T, device=dev))
+    torch.cuda.synchronize()
+    err = float((limbs_to_f64(accs[0], e)
+                 - limbs_to_f64(accs[1], e)).abs().max())
+    check(err < ACC_TOL[tier] * 2.0 ** e, f"{what}: err {err:.3e} vs 2^{e}")
+    check(torch.equal(accs[0], accs[2]), f"{what}: runs differ")
+    check(torch.equal(accs[0], accs[3]), f"{what}: permutation changes bits")
+    check(bool(accs[0].any()), f"{what}: nothing accumulated")
+    return err, accs[0], accs[1]
+
+
+def _accum_cd(dev, rng):
+    """Kernels C (tile_accumulate) and D (block_accumulate) against their
+    plain versions on synthetic values, with a second and a permuted run.
+    Returns the worst fp64 error over 2^e of each."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.ops import accum as ac
+    from joltqc_tpu_torch.ops import accum_tile as at
+    from joltqc_tpu_torch.ops.eri import tier_dtype
+
+    worst = {"c": 0.0, "d": 0.0}
+    for tier, nf, Wx, Wy, T in (("f32", 3, 64, 64, 1024),
+                                ("fp64", 36, 64, 64, 1024),
+                                ("f32", 1, 8, 64, 1024),
+                                ("fp64", 36, 64, 64, 131072),
+                                ("f32", 36, 64, 64, 131072)):
+        v = torch.as_tensor(
+            rng.standard_normal((T, nf)) * np.exp(rng.uniform(-12, 0, (T, 1))),
+            dtype=tier_dtype(tier), device=dev)
+        ix = torch.as_tensor(rng.integers(0, Wx, T), dtype=torch.int32,
+                             device=dev)
+        iy = torch.as_tensor(rng.integers(0, Wy, T), dtype=torch.int32,
+                             device=dev)
+        e = ac.bound_exponent(float(v.abs().max()) * 1.5)
+        err, _, _ = _held(
+            dev, f"tile_accumulate {tier} T={T} nf={nf} Wx={Wx}", tier, e,
+            (Wx, Wy, nf, ac.NLIMB), T,
+            lambda acc, p: at.tile_accumulate_chunk(*_permuted(p, v, ix, iy),
+                                                    acc, e),
+            lambda acc: at.tile_accumulate_plain(v, ix, iy, acc, e))
+        if tier == "fp64":
+            worst["c"] = max(worst["c"], err * 2.0 ** -e)
+    for T, nf, nrows in ((1024, 5, 16), (256, 3, 32), (131072, 36, 4096)):
+        for tier in ("fp64", "f32"):
+            v = torch.as_tensor(
+                rng.standard_normal((T, nf))
+                * np.exp(rng.uniform(-20, 3, (T, nf))),
+                dtype=tier_dtype(tier), device=dev)
+            # some keys at or beyond nrows: dropped
+            key = torch.as_tensor(rng.integers(0, nrows + 2, T),
+                                  dtype=torch.int32, device=dev)
+            e = ac.bound_exponent(float(v.abs().max()) * 2)
+            err, _, _ = _held(
+                dev, f"block_accumulate {tier} T={T} nf={nf} nrows={nrows}",
+                tier, e, (nrows, nf, ac.NLIMB), T,
+                lambda acc, p: ac.accum_block_chunk(*_permuted(p, v, key),
+                                                    acc, e),
+                lambda acc: ac.block_accumulate_plain(v, key, acc, e))
+            if tier == "fp64":
+                worst["d"] = max(worst["d"], err * 2.0 ** -e)
+    return worst["c"], worst["d"]
 
 
 # ------------------------------------------------------------ phase 4
@@ -228,7 +328,58 @@ def phase_anchors(ctx):
         check(abs(e - ref) < tol,
               f"H2O/{basis}: E {e:.10f} vs {ref} (|dE| {abs(e - ref):.2e})")
         out.append(f"H2O/{basis} E={e:.10f} |dE|={abs(e - ref):.1e}")
+        if basis == "sto-3g":
+            e_direct = e
+    mol_sto = Molecule.from_atom_string(H2O, basis="sto-3g")
+    out.append(_anchor_modes(mol_sto))
+    mf = RHF(mol_sto, conv_tol=1e-11, incremental=True)
+    e = mf.kernel()
+    check(mf.converged and abs(e - e_direct) < 1e-9,
+          f"H2O/sto-3g incremental: E {e:.12f} vs direct {e_direct:.12f}")
+    out.append(f"incremental RHF |dE vs direct|={abs(e - e_direct):.1e} "
+               f"in {mf.scf_summary['cycles']} cycles")
     return "; ".join(out)
+
+
+def _anchor_modes(mol):
+    """H2O/sto-3g get_jk on the card, all-fp64 routing: the three
+    accumulation modes x (omega=0.3, hermi=0, a stack of 2) against the
+    dense oracle at 1e-9."""
+    import numpy as np
+    from joltqc_tpu_torch.mol import intor_np
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.scf import JKEngine
+
+    rng = np.random.default_rng(7)
+    a = rng.uniform(-1, 1, (mol.nao, mol.nao))
+    sym = a + a.T
+    g = {0.0: intor_np.eri(mol), 0.3: intor_np.eri(mol, omega=0.3)}
+
+    def ref(om, d):
+        return (np.einsum("ijkl,kl->ij", g[om], d),
+                np.einsum("ikjl,kl->ij", g[om], d))
+
+    worst = 0.0
+    for accum, kw in (("tile", {}), ("scatter", {}), ("block", {"tile": 4})):
+        eng = JKEngine(BasisLayout(mol), cutoff_fp32=1e-30,
+                       cutoff_fp64=1e-30, accum=accum, tile_w=8, **kw)
+        cases = (("omega", eng.get_jk(sym, omega=0.3), ref(0.3, sym)),
+                 ("hermi0", eng.get_jk(a, hermi=0), ref(0.0, a)))
+        stack = np.stack([sym, 0.5 * sym + np.eye(mol.nao)])
+        vj, vk = eng.get_jk(stack)
+        cases += tuple((f"stack{i}", (vj[i], vk[i]), ref(0.0, stack[i]))
+                       for i in range(2))
+        for name, got, want in cases:
+            err = max(np.abs(got[0] - want[0]).max(),
+                      np.abs(got[1] - want[1]).max())
+            check(err < 1e-9, f"H2O/sto-3g {accum} {name}: |J/K - oracle| "
+                  f"{err:.3e}")
+            worst = max(worst, err)
+        if accum == "block":
+            check(eng.plan_stats["by_accum"]["block"] > 0,
+                  "H2O/sto-3g block engine: no block entry")
+    return (f"3 modes x (omega, hermi=0, stack) vs dense oracle: max err "
+            f"{worst:.1e} (tol 1e-9)")
 
 
 # ------------------------------------------------------------ phase 5
@@ -281,7 +432,8 @@ def phase_full(ctx):
     check(np.array_equal(j1, j2) and np.array_equal(k1, k2),
           "0029: repeated get_jk differs")
     ctx["jk_wall"] = jk_wall
-    _profile_jk(ctx, mf, dm)
+    ctx["mf"], ctx["e_0029"], ctx["scf_wall"] = mf, e, wall
+    _profile_jk(mf.jk, dm, jk_wall, "get_jk")
     _fock_bounds(mf.jk)
     _time_kernels(ctx, mf)
     return (f"E={e:.10f} (ref {E_0029}, |dE| {abs(e - E_0029):.2e}); "
@@ -289,14 +441,15 @@ def phase_full(ctx):
             f"launches per get_jk {ctx['launches_per_jk']}")
 
 
-def _profile_jk(ctx, mf, dm):
-    """Device time by kernel over one get_jk (torch.profiler)."""
+def _profile_jk(eng, dm, wall, label):
+    """Device time by kernel over one get_jk (torch.profiler), beside the
+    wall time of a warm call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        mf.jk.get_jk(dm)
+        eng.get_jk(dm)
         torch.cuda.synchronize()
     rows = []
     dev_total = 0.0
@@ -309,12 +462,13 @@ def _profile_jk(ctx, mf, dm):
             dev_total += us
     rows.sort(reverse=True)
     if not rows:
-        say("  profile: no device time recorded (not measured)")
+        say(f"  profile {label}: no device time recorded (not measured)")
         return
     for us, key, n in rows[:6]:
-        say(f"  profile get_jk: {us / 1e3:10.3f} ms  x{n:<5d} {key[:70]}")
-    say(f"  profile get_jk: device busy {dev_total / 1e3:.3f} ms of "
-        f"{ctx['jk_wall'] * 1e3:.3f} ms wall")
+        say(f"  profile {label}: {us / 1e3:10.3f} ms  x{n:<5d} {key[:70]}")
+    eri = sum(us for us, key, _ in rows if "eri_kernel" in key)
+    say(f"  profile {label}: device busy {dev_total / 1e3:.3f} ms (eri "
+        f"kernels {eri / 1e3:.3f} ms) of {wall * 1e3:.3f} ms wall")
 
 
 def _fock_bounds(eng):
@@ -559,9 +713,294 @@ def _time_kernels(ctx, mf):
         f"({bytes_b:.3e} B, {ntgt} targets)")
 
 
+# ------------------------------------------------------------ phase 6
+def _scf_0029(ctx):
+    """The converged direct RHF of phase full (run here when that phase
+    was left out)."""
+    if "mf" not in ctx:
+        import torch
+        from joltqc_tpu_torch.mol import Molecule
+        from joltqc_tpu_torch.scf import RHF
+
+        mf = RHF(Molecule.from_xyz_file(XYZ_0029, basis="6-31g*"))
+        t0 = time.perf_counter()
+        e = mf.kernel()
+        torch.cuda.synchronize()
+        check(mf.converged, "0029: SCF not converged")
+        ctx["mf"], ctx["e_0029"] = mf, e
+        ctx["scf_wall"] = time.perf_counter() - t0
+    return ctx["mf"]
+
+
+def _jk_diff(a, b):
+    """max |dJ|, max |dK| and the scale max(|J|, 1) of two (J, K) pairs."""
+    import numpy as np
+
+    return (float(np.abs(a[0] - b[0]).max()), float(np.abs(a[1] - b[1]).max()),
+            max(float(np.abs(b[0]).max()), 1.0))
+
+
+def phase_modes(ctx):
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.ops.accum import accum_block_chunk as blk_k
+    from joltqc_tpu_torch.ops.accum_tile import accum_tile_chunk as acc_k
+    from joltqc_tpu_torch.ops.eri import eri_chunk as eri_k
+    from joltqc_tpu_torch.scf import RHF, JKEngine
+
+    mf = _scf_0029(ctx)
+    dm = mf.dm
+    nao = dm.shape[0]
+    engines = {"tile": mf.jk}
+    jk = {"tile": mf.jk.get_jk(dm)}
+    walls = {}
+    for mode in ("scatter", "block"):
+        eng = JKEngine(mf.layout, cutoff_fp32=mf.cutoff_fp32,
+                       cutoff_fp64=mf.cutoff_fp64, accum=mode)
+        eng.get_jk(dm)  # cold: Schwarz bounds, plan build, uploads
+        eri_k.launches = acc_k.launches = blk_k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        jk[mode] = eng.get_jk(dm)
+        torch.cuda.synchronize()
+        walls[mode] = time.perf_counter() - t0
+        n = {"eri": eri_k.launches, "accum_tile": acc_k.launches,
+             "accum_block": blk_k.launches}
+        ctx.setdefault("launches_modes", {})[mode] = n
+        again = eng.get_jk(dm)
+        check(np.array_equal(jk[mode][0], again[0])
+              and np.array_equal(jk[mode][1], again[1]),
+              f"modes {mode}: repeated get_jk differs")
+        by = eng.plan_stats["by_accum"]
+        say(f"  modes {mode}: tasks by entry accum {by}, entries "
+            f"{len(eng._plan)}, warm get_jk {walls[mode]:.3f} s, launches {n}, "
+            f"plan_build_s {eng.timing['plan_build_s']:.2f}")
+        engines[mode] = eng
+        _profile_jk(eng, dm, walls[mode], f"get_jk[{mode}]")
+    by = engines["block"].plan_stats["by_accum"]
+    check(by["block"] > 0, "modes: the block engine routed no task to 'block'")
+    check(ctx["launches_modes"]["block"]["accum_block"] > 0,
+          "modes: kernel D was not launched by the block engine")
+    check(ctx["launches_modes"]["scatter"]["accum_block"] == 0
+          and ctx["launches_modes"]["scatter"]["accum_tile"] == 0,
+          "modes: the scatter engine launched an accumulation kernel")
+    # J/K of the modes against each other; limits stated before the run
+    lines = []
+    for a, b, tol in (("tile", "scatter", MODE_TOL["tile"]),
+                      ("block", "scatter", MODE_TOL["block"])):
+        dj, dk, scale = _jk_diff(jk[a], jk[b])
+        lines.append(f"{a} vs {b}: |dJ| {dj:.3e} |dK| {dk:.3e} (limit "
+                     f"{tol:g} x {scale:.4g})")
+        check(dj < tol * scale and dk < tol * scale,
+              f"modes {a} vs {b}: |dJ| {dj:.3e} |dK| {dk:.3e} above "
+              f"{tol:g} x {scale:.4g}")
+    say("  modes J/K: " + "; ".join(lines))
+
+    # hermi=0 on dm + A, omega=0.3: tile against scatter; J of the hermi=0
+    # call is J of the symmetric part; a stack [dm, dm/2] gives [J, J/2]
+    a = np.random.default_rng(29).standard_normal((nao, nao)) * 1e-3
+    x = dm + (a - a.T)
+    xs = 0.5 * (x + x.T)
+    et, es = engines["tile"], engines["scatter"]
+    h_t, h_s = et.get_jk(x, hermi=0), es.get_jk(x, hermi=0)
+    dj, dk, scale = _jk_diff(h_t, h_s)
+    check(dj < MODE_TOL["tile"] * scale and dk < MODE_TOL["tile"] * scale,
+          f"modes hermi=0 tile vs scatter: |dJ| {dj:.3e} |dK| {dk:.3e}")
+    asym = float(np.abs(h_t[1] - h_t[1].T).max())
+    check(asym > 0.0, "modes hermi=0: K came out symmetric")
+    for name, eng, h in (("tile", et, h_t), ("scatter", es, h_s)):
+        j_sym, _ = eng.get_jk(xs, with_k=False)
+        check(np.array_equal(j_sym, h[0]),
+              f"modes hermi=0 {name}: J differs from J of the symmetric part")
+    o_t, o_s = et.get_jk(dm, omega=0.3), es.get_jk(dm, omega=0.3)
+    oj, ok_, oscale = _jk_diff(o_t, o_s)
+    check(oj < MODE_TOL["tile"] * oscale and ok_ < MODE_TOL["tile"] * oscale,
+          f"modes omega=0.3 tile vs scatter: |dJ| {oj:.3e} |dK| {ok_:.3e}")
+    check(float(np.abs(o_t[0]).max()) < float(np.abs(jk["tile"][0]).max()),
+          "modes omega=0.3: long-range J not below the full J")
+    sj, sk = et.get_jk(np.stack([dm, 0.5 * dm]))
+    jt, kt = et.get_jk(dm)
+    jmax = float(np.abs(jt).max())
+    d_stack = max(float(np.abs(sj[0] - jt).max()),
+                  float(np.abs(sj[1] - 0.5 * jt).max()),
+                  float(np.abs(sk[0] - kt).max()),
+                  float(np.abs(sk[1] - 0.5 * kt).max()))
+    check(d_stack < 1e-12 * jmax, f"modes stack [dm, dm/2]: off by "
+          f"{d_stack:.3e} (limit 1e-12 x {jmax:.4g})")
+    say(f"  modes hermi=0: tile vs scatter |dJ| {dj:.3e} |dK| {dk:.3e} "
+        f"(limit {MODE_TOL['tile']:g} x {scale:.4g}), |K - K^T| {asym:.3e}, "
+        f"J equals J(sym part) bit for bit; omega=0.3: |dJ| {oj:.3e} |dK| "
+        f"{ok_:.3e} (x {oscale:.4g}); stack [dm, dm/2] off by {d_stack:.3e} "
+        f"(limit 1e-12 x {jmax:.4g})")
+
+    _time_cd(ctx, mf, engines["block"])
+
+    # incremental direct SCF against the direct run of this script
+    mi = RHF(mf.mol, cutoff_fp32=mf.cutoff_fp32, cutoff_fp64=mf.cutoff_fp64,
+             incremental=True)
+    t0 = time.perf_counter()
+    e_i = mi.kernel()
+    torch.cuda.synchronize()
+    wall_i = time.perf_counter() - t0
+    de = abs(e_i - ctx["e_0029"])
+    builds = {f"{k[0]}": v for k, v in sorted(
+        mi.jk.plan_builds.items(), key=lambda kv: str(kv[0]))}
+    say(f"  modes incremental RHF: E={e_i:.10f} |dE vs direct|={de:.2e} "
+        f"conv_tol={mi.conv_tol:g} cycles={mi.scf_summary['cycles']} (direct "
+        f"{mf.scf_summary['cycles']}) scf_wall_s={wall_i:.2f} (direct "
+        f"{ctx['scf_wall']:.2f}) plan_build_s="
+        f"{mi.jk.timing.get('plan_build_s', 0.0):.2f} plan builds per "
+        f"bucket {builds}")
+    check(mi.converged, "modes: incremental SCF not converged")
+    check(de < 1e-8, f"modes: incremental E {e_i:.10f} vs direct "
+          f"{ctx['e_0029']:.10f}")
+    return (f"scatter {walls['scatter']:.3f} s, block {walls['block']:.3f} s "
+            f"per warm get_jk (tile {ctx.get('jk_wall', float('nan')):.3f} "
+            f"s); kernel D launches {ctx['launches_modes']['block']}; "
+            f"incremental |dE| {de:.2e}")
+
+
+def _byte_bound(T, nf, es, idx_bytes, ntgt):
+    """ms to move T*(nf*es + idx_bytes) bytes in and 24 bytes per distinct
+    target out at the card's memory rate."""
+    return (T * (nf * es + idx_bytes) + 24 * ntgt) / PEAK_BYTES * 1e3
+
+
+def _held_and_timed(dev, what, tier, e, shape, T, launch, plain, library):
+    """``_held`` at a main-path chunk, then the times: ``library()`` is
+    the yardstick call.  Returns (max abs error, kernel ms, plain ms,
+    library ms)."""
+    err, acc_k, acc_p = _held(dev, f"{what} at the main path's shapes", tier,
+                              e, shape, T, launch, plain)
+    return (err, cuda_ms(lambda: launch(acc_k, None)),
+            cuda_ms(lambda: plain(acc_p)), cuda_ms(library))
+
+
+def _time_cd(ctx, mf, eng_b):
+    """Kernels D and C against their plain versions and timed at the main
+    path's shapes: D on the first chunk of the block plan's entry with
+    the most values (its widest stream), C on the contracted K stream ac
+    and the within-supertile indices of the first chunk of the tile
+    plan's largest entry."""
+    import torch
+    from joltqc_tpu_torch.ops import accum as ac
+    from joltqc_tpu_torch.ops import accum_tile as at
+    from joltqc_tpu_torch.ops.eri import tier_dtype
+
+    dev = eng_b.device
+    dm_int = eng_b.layout.dm_to_internal(mf.dm)
+
+    def chunk_streams(eng, entry):
+        """The six contracted streams of the entry's first launch."""
+        dm = torch.as_tensor(dm_int, dtype=tier_dtype(entry["tier"]),
+                             device=dev).reshape(-1)
+        tbls, idx, w, G = eng._chunk_eri(entry, 0)
+        js, ks = eng._chunk_streams(entry, tbls, idx, w, G, dm)
+        return idx, [(xy, v.contiguous()) for xy, v, _ in js + ks]
+
+    def widest(entry):
+        nfs = sorted((l + 1) * (l + 2) // 2 for l in entry["ls"])
+        return nfs[-1] * nfs[-2]
+
+    # ---- kernel D
+    plan = eng_b._plans_full[0.0][0]
+    e = max(ac.bound_exponent(x["bound"]) for x in plan)
+    entry = max((x for x in plan if x["accum"] == "block"),
+                key=lambda x: min(x["ntasks"], x["chunk"]) * widest(x))
+    tier = entry["tier"]
+    idx, streams = chunk_streams(eng_b, entry)
+    xy, vals = max(streams, key=lambda st: st[1].shape[1])
+    rowkey, _ = eng_b._block_keys(entry, 0, idx, xy)
+    T, nf = vals.shape
+    nrows = entry["nrows"]
+    v64, k64 = vals.double(), rowkey.long()
+    out64 = torch.zeros((nrows, nf), dtype=torch.float64, device=dev)
+    err_d, ms_d, plain_d, lib_d = _held_and_timed(
+        dev, f"accum_block {tier} {entry['ls']}", tier, e,
+        (nrows, nf, ac.NLIMB), T,
+        lambda acc, p: ac.accum_block_chunk(*_permuted(p, vals, rowkey),
+                                            acc, e),
+        lambda acc: ac.block_accumulate_plain(vals, rowkey, acc, e),
+        lambda: out64.index_add_(0, k64, v64))
+    ntgt = int(torch.unique(rowkey).numel()) * nf
+    bound_d = _byte_bound(T, nf, vals.element_size(), 4, ntgt)
+    ctx["kern_d"] = dict(
+        name="accum_block_chunk", route="cuda",
+        source="joltqc_tpu_torch/csrc/accum_block.cu",
+        replaces="joltqc_tpu/ops/accum_pallas.py:124",
+        launches=ctx["launches_modes"]["block"]["accum_block"],
+        max_abs_err=err_d, ms=ms_d, plain_ms=plain_d, bound_ms=bound_d,
+        bound_by="bytes", library_ms=lib_d,
+    )
+    say(f"  time accum_block: class {entry['ls']} {tier} stream {xy} T={T} "
+        f"nf={nf} nrows={nrows}: kernel {ms_d:.3f} ms, plain {plain_d:.3f} "
+        f"ms, index_add_ {lib_d:.3f} ms, bound {bound_d:.4f} ms ({ntgt} "
+        f"targets); err / 2^e {err_d * 2.0 ** -e:.3e} (tol "
+        f"{ACC_TOL[tier]:g}); permuted run bit-identical")
+
+    # ---- kernel C
+    eng = mf.jk
+    W = eng.tile_w
+    entry = max(eng._plan, key=lambda x: x["ntasks"] * _nfel(x))
+    tier = entry["tier"]
+    e = max(ac.bound_exponent(x["bound"]) for x in eng._plan)
+    idx, streams = chunk_streams(eng, entry)
+    cen = {"a": 0, "b": 1, "c": 2, "d": 3}
+    streams = [(xy, v, (idx[cen[xy[0]]] % W).contiguous(),
+                (idx[cen[xy[1]]] % W).contiguous()) for xy, v in streams]
+    xy, vals, ix, iy = streams[2]  # K stream ac
+    T, nf = vals.shape
+    v64 = vals.double()
+    flat = ix.long() * W + iy.long()
+    out64 = torch.zeros((W * W, nf), dtype=torch.float64, device=dev)
+    err_c, ms_c, plain_c, lib_c = _held_and_timed(
+        dev, f"tile_accumulate {tier} {entry['ls']}", tier, e,
+        (W, W, nf, ac.NLIMB), T,
+        lambda acc, p: at.tile_accumulate_chunk(*_permuted(p, vals, ix, iy),
+                                                acc, e),
+        lambda acc: at.tile_accumulate_plain(vals, ix, iy, acc, e),
+        lambda: out64.index_add_(0, flat, v64))
+    ntgt = int(torch.unique(flat).numel()) * nf
+    bound_c = _byte_bound(T, nf, vals.element_size(), 8, ntgt)
+    # the public function on the six streams of that chunk (no engine
+    # path calls it): its launches are counted here, and the decoded
+    # tiles are held against float64 sums of the same values
+    at.tile_accumulate_chunk.launches = 0
+    worst = 0.0
+    for sxy, v, sx, sy in streams:
+        limbs, e_s = at.tile_accumulate(v, sx, sy, W, W, 2.0 ** (e - 1))
+        want = torch.zeros((W * W, v.shape[1]), dtype=torch.float64,
+                           device=dev).index_add_(0, sx.long() * W + sy.long(),
+                                                  v.double())
+        d = float((at.tile_limbs_to_f64(limbs, e_s).view(W * W, -1)
+                   - want).abs().max())
+        check(e_s == e and d < 1e-10 * 2.0 ** e, f"tile_accumulate stream "
+              f"{sxy}: off the float64 sums by {d:.3e} vs 2^{e}")
+        worst = max(worst, d)
+    torch.cuda.synchronize()
+    check(at.tile_accumulate_chunk.launches == len(streams),
+          "tile_accumulate did not launch its kernel once per stream")
+    ctx["kern_c"] = dict(
+        name="tile_accumulate_chunk", route="cuda",
+        source="joltqc_tpu_torch/csrc/accum_tile.cu",
+        replaces="joltqc_tpu/ops/accum_tile.py:176",
+        launches=at.tile_accumulate_chunk.launches,
+        max_abs_err=err_c, ms=ms_c, plain_ms=plain_c, bound_ms=bound_c,
+        bound_by="bytes", library_ms=lib_c,
+    )
+    say(f"  time tile_accumulate: class {entry['ls']} {tier} stream {xy} "
+        f"T={T} nf={nf} W={W}: kernel {ms_c:.3f} ms, plain {plain_c:.3f} ms, "
+        f"index_add_ {lib_c:.3f} ms, bound {bound_c:.4f} ms ({ntgt} "
+        f"targets); err / 2^e {err_c * 2.0 ** -e:.3e} (tol "
+        f"{ACC_TOL[tier]:g}); six streams through tile_accumulate off the "
+        f"float64 sums by {worst * 2.0 ** -e:.3e} of 2^e, launches "
+        f"{at.tile_accumulate_chunk.launches}")
+
+
 # --------------------------------------------------------------- main
 PHASES = (("build", phase_build), ("eri", phase_eri), ("accum", phase_accum),
-          ("anchors", phase_anchors), ("full", phase_full))
+          ("anchors", phase_anchors), ("full", phase_full),
+          ("modes", phase_modes))
 
 
 def main(argv=None):
@@ -609,7 +1048,8 @@ def main(argv=None):
         return 1
     if want is None:
         say(ctx["smi"])
-        say(json.dumps({"kernels": [ctx["kern_a"], ctx["kern_b"]]}))
+        say(json.dumps({"kernels": [ctx[k] for k in (
+            "kern_a", "kern_b", "kern_c", "kern_d")]}))
     else:
         say(ctx.get("smi", ""))
     say(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ NVIDIA H100.
 The JAX package ``joltqc_tpu`` stays the reference; this package imports
 neither JAX nor ``joltqc_tpu``.  Host-side numpy modules are copied
 (mol/, scf/tasks.py, scf/diis.py, native/), tensor code is PyTorch, and
-the two TPU kernels on the RHF path are hand-written CUDA for sm_90a
-(csrc/eri.cu, csrc/accum_tile.cu).  Entry points run on ``cuda`` unless
+the four TPU kernels of the reference are hand-written CUDA for sm_90a
+(csrc/eri.cu, the two kernels of csrc/accum_tile.cu, csrc/accum_block.cu).
+Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``, which runs the plain PyTorch
 versions of the kernels.
 """

@@ -1,6 +1,6 @@
-// Fused contract + tile accumulation: hand-written CUDA kernel for Hopper
-// (sm_90a).
+// Tile accumulation: two hand-written CUDA kernels for Hopper (sm_90a).
 //
+// (1) accum_tile_kernel, fused contract + tile accumulation.
 // Replaces the Pallas TPU kernel joltqc_tpu/ops/accum_tile.py
 // (fused_contract_tile / _fused_kernel, pl.pallas_call at :367).  For one
 // output stream xy of a chunk of tasks it contracts the symmetry-weighted
@@ -8,7 +8,7 @@
 //     V[t, f] = sum_o G[t, gidx[f, o]] * d[t, o],
 // converts V to fixed point with a static host bound and adds it into a
 // dense integer accumulator at (row(t) + roff[f], col(t) + coff[f]).
-// Plain version: joltqc_tpu_torch/ops/accum_tile.py::accum_plain.
+// Plain version: joltqc_tpu_torch/ops/accum_tile.py::accum_tile_plain.
 //
 // What bounds it on the card: memory traffic and atomic throughput.  It
 // reads each G element once (8 or 4 bytes) and does nfo multiply-adds per
@@ -26,7 +26,8 @@
 //    limbs so that a bf16 one-hot matmul sums them exactly.  Here the
 //    value, scaled by 2^(120 - e) where 2^e bounds the stream's values,
 //    is split into three 40-bit limbs of one sign (exact in double) and
-//    each limb is added with a 64-bit integer atomicAdd.  Integer addition
+//    each limb is added with a 64-bit integer atomicAdd (limbs.cuh, shared
+//    with accum_block.cu).  Integer addition
 //    is associative, so the sums are bit-identical in any order, and the
 //    decoded value keeps 120 bits below the bound (the TPU's fp64 tile
 //    kept 70).  With 40-bit limbs an element takes 2^23 contributions
@@ -35,10 +36,27 @@
 //    J factor 2 are powers of two, applied exactly to V.
 // The bilinear one-hot MXU matmul of the TPU kernel, and its chunk-size
 // limits, are not carried over.
+//
+// (2) tile_accumulate_kernel, the accumulation alone.
+// Replaces joltqc_tpu/ops/accum_tile.py (tile_accumulate / _tile_kernel,
+// pl.pallas_call at :176): values (T, nf) that are already contracted go
+// to out[ix[t], iy[t], f] of a dense (Wx, Wy, nf, 3) limb tile; tasks
+// whose ix or iy lies outside the tile are dropped (the one-hot of the
+// TPU kernel matches nothing there).  It is kernel (1) with the
+// contraction and the density read removed, as a kernel of its own entry.
+// Plain version: ops/accum_tile.py::tile_accumulate_plain.
+// What bounds it: bytes, then atomic throughput.  It reads 4 or 8 bytes
+// per value and 8 bytes of indices per task and does no arithmetic beyond
+// the limb split; every nonzero limb is one 64-bit atomic.  values is
+// task-major (T, nf) contiguous, so one thread per element in flat order
+// (f fastest along threadIdx.x) reads it fully coalesced, and the nf
+// threads of one task add to 24-byte neighbours of one tile cell.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "limbs.cuh"
 
 namespace {
 
@@ -80,21 +98,25 @@ __global__ void __launch_bounds__(128) accum_tile_kernel(Stream s) {
   R v = 0;
   for (int o = 0; o < s.nfo; ++o) v += G[gi[o] * s.g_sf] * D[s.doff[o]];
 
-  double x = (double)v * (s.w ? s.fac * (double)s.w[t] : s.fac);
-  x = ldexp(x, s.shift);
-  const double ax = fabs(x);
-  // three limbs of one sign: |x| = l0 2^80 + l1 2^40 + l2, each step exact
-  const double l0 = trunc(ax * 0x1p-80);
-  const double r1 = ax - l0 * 0x1p80;
-  const double l1 = trunc(r1 * 0x1p-40);
-  const double l2 = rint(r1 - l1 * 0x1p40);
-  const long long sg = x < 0 ? -1 : 1;
+  const double x = (double)v * (s.w ? s.fac * (double)s.w[t] : s.fac);
   const long long row = (long long)s.rmap[s.ix[t]] + s.roff[f];
   const long long col = (long long)s.cmap[s.iy[t]] + s.coff[f];
-  unsigned long long* a = s.acc + (row * s.ncols + col) * 3;
-  if (l0 != 0.0) atomicAdd(a + 0, (unsigned long long)(sg * (long long)l0));
-  if (l1 != 0.0) atomicAdd(a + 1, (unsigned long long)(sg * (long long)l1));
-  if (l2 != 0.0) atomicAdd(a + 2, (unsigned long long)(sg * (long long)l2));
+  jqc::add_limbs(s.acc + (row * s.ncols + col) * 3, x, s.shift);
+}
+
+template <typename R>
+__global__ void __launch_bounds__(256) tile_accumulate_kernel(
+    const R* __restrict__ values, const int* __restrict__ ix,
+    const int* __restrict__ iy, unsigned long long* acc, long long n, int nf,
+    int Wx, int Wy, int shift) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long t = i / nf;
+  const int f = (int)(i - t * nf);
+  const int x = ix[t], y = iy[t];
+  if (x < 0 || x >= Wx || y < 0 || y >= Wy) return;
+  jqc::add_limbs(acc + (((long long)x * Wy + y) * nf + f) * 3,
+                 (double)values[i], shift);
 }
 
 }  // namespace
@@ -139,5 +161,27 @@ extern "C" int jqc_accum_tile_launch(int dtype, void* const* p,
     accum_tile_kernel<float><<<grid, block, 0, st>>>(s);
   else
     accum_tile_kernel<double><<<grid, block, 0, st>>>(s);
+  return (int)cudaGetLastError();
+}
+
+// values (T, nf) contiguous in dtype (0 = float32, 1 = float64); ix, iy
+// (T,) int32; acc (Wx, Wy, nf, 3) int64 limb sums, updated in place.
+extern "C" int jqc_tile_accumulate_launch(int dtype, const void* values,
+                                          const int* ix, const int* iy,
+                                          void* acc, long long T, int nf,
+                                          int Wx, int Wy, int shift,
+                                          void* stream) {
+  if (T <= 0 || nf <= 0) return 0;
+  const long long n = T * nf;
+  const long long nblk = (n + 255) / 256;
+  if (nblk > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned long long* a = static_cast<unsigned long long*>(acc);
+  if (dtype == 0)
+    tile_accumulate_kernel<float><<<(unsigned)nblk, 256, 0, st>>>(
+        static_cast<const float*>(values), ix, iy, a, n, nf, Wx, Wy, shift);
+  else
+    tile_accumulate_kernel<double><<<(unsigned)nblk, 256, 0, st>>>(
+        static_cast<const double*>(values), ix, iy, a, n, nf, Wx, Wy, shift);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,10 @@
 """Fused density contraction + exact tile accumulation of one output
-stream (the J/K engine's Fock accumulation).
+stream (the J/K engine's Fock accumulation), and the tile accumulation of
+values that are already contracted.
 
-Port of ``joltqc_tpu/ops/accum_tile.py::fused_contract_tile`` (with
-``_exp_of_max`` of ops/accum.py).  For one output stream xy of a chunk
-of tasks:
+Port of ``joltqc_tpu/ops/accum_tile.py``: ``fused_contract_tile`` and
+``tile_accumulate``.  For one output stream xy of a chunk of tasks,
+``fused_contract_tile``:
 
   1. contract V[t, f] = sum_o G[t, gidx[f, o]] * d[t, o] in the tier's
      dtype, where d[t, o] = dsrc[dmapu[iu[t]] * dstride + dmapv[iv[t]]
@@ -19,26 +20,26 @@ Integer addition is associative, so the accumulator is bit-identical for
 any task order and any launch split; ``limbs_to_f64`` decodes it once.
 CPU tensors run ``accum_tile_plain``; CUDA tensors launch the kernel
 (csrc/accum_tile.cu) through ``accum_tile_chunk``.
+
+``tile_accumulate`` is steps 2 and 3 alone: values (T, nf) go to
+``out[ix[t], iy[t], f]`` of a dense (Wx, Wy, nf) tile of limb sums (the
+second kernel of csrc/accum_tile.cu through ``tile_accumulate_chunk``,
+``tile_accumulate_plain`` on the CPU).  No path of the J/K engine calls
+it, in this package as in the reference; it is a public function.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 from dataclasses import dataclass
 
 import torch
 
 from . import cuda
-
-NLIMB = 3
-LIMB_BITS = 40
-FRAC_BITS = NLIMB * LIMB_BITS
-
-
-def bound_exponent(bound: float) -> int:
-    """e with bound < 2^e (frexp exponent; zero guarded as in JAX)."""
-    return math.frexp(max(float(bound), 1e-30))[1]
+from .accum import (  # noqa: F401  (re-exported for this module's callers)
+    FRAC_BITS, LIMB_BITS, NLIMB, bound_exponent, check_values, limbs_to_f64,
+    split_limbs, value_limbs,
+)
 
 
 @dataclass
@@ -69,18 +70,6 @@ def _g_strides(G):
     return st, s2
 
 
-def split_limbs(x: torch.Tensor) -> torch.Tensor:
-    """float64 x (already scaled by 2^(120-e)) -> (..., 3) int64 limbs
-    of x's sign with |x| = l0 2^80 + l1 2^40 + l2 (each step exact)."""
-    ax = x.abs()
-    l0 = torch.trunc(ax * 2.0 ** -80)
-    r1 = ax - l0 * 2.0 ** 80
-    l1 = torch.trunc(r1 * 2.0 ** -40)
-    l2 = torch.round(r1 - l1 * 2.0 ** 40)
-    sg = torch.where(x < 0, -1, 1).to(torch.int64)
-    return torch.stack([l0, l1, l2], -1).to(torch.int64) * sg[..., None]
-
-
 def accum_tile_plain(G, tabs: StreamTables, dsrc, dstride, du, dv, rx, ry,
                      w, acc, e: int):
     """Plain PyTorch version of the kernel (same arguments)."""
@@ -109,6 +98,12 @@ def _declare(lib):
     lib.jqc_accum_tile_launch.argtypes = [
         ctypes.c_int, ctypes.c_void_p * 16, ctypes.c_int * 4,
         ctypes.c_longlong * 4, ctypes.c_double, ctypes.c_void_p,
+    ]
+    lib.jqc_tile_accumulate_launch.restype = ctypes.c_int
+    lib.jqc_tile_accumulate_launch.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
 
 
@@ -189,20 +184,6 @@ def contract_tile(G, tabs, dsrc, dstride, du, dv, rx, ry, w, acc, e):
     return accum_tile_plain(G, tabs, dsrc, dstride, du, dv, rx, ry, w, acc, e)
 
 
-def limbs_to_f64(acc: torch.Tensor, e: int) -> torch.Tensor:
-    """Decode (..., 3) int64 limb sums at exponent e to float64: exact
-    carry normalisation, then one rounding per term."""
-    s0, s1, s2 = acc.unbind(-1)
-    c = s2 >> LIMB_BITS
-    s2 = s2 - (c << LIMB_BITS)
-    s1 = s1 + c
-    c = s1 >> LIMB_BITS
-    s1 = s1 - (c << LIMB_BITS)
-    s0 = s0 + c
-    v = s0.double() * 2.0 ** 80 + s1.double() * 2.0 ** 40
-    return (v + s2.double()) * 2.0 ** (e - FRAC_BITS)
-
-
 def fused_contract_tile(G, d, lx, ly, Wx: int, Wy: int, bound: float):
     """One stream's chunk, in the JAX function's terms: contract G
     (T, nfxy, nfo) with per-task density rows d (T, nfo) and accumulate
@@ -243,10 +224,66 @@ def _supertile(fn, G, d, lx, ly, Wx, Wy, bound):
 
 
 def tile_limbs_to_f64(limbs, e: int):
-    """Decoded float64 tile of ``fused_contract_tile``."""
+    """Decoded float64 tile of ``fused_contract_tile`` or
+    ``tile_accumulate``."""
     return limbs_to_f64(limbs, e)
 
 
+# ------------------------------------------- accumulation alone (kernel C)
+def tile_accumulate_plain(values, ix, iy, acc, e: int):
+    """Plain PyTorch version of the kernel (same arguments)."""
+    Wx, Wy, nf, _ = acc.shape
+    x, y = ix.long(), iy.long()
+    keep = (x >= 0) & (x < Wx) & (y >= 0) & (y < Wy)
+    acc.view(Wx * Wy, nf, NLIMB).index_add_(
+        0, (x * Wy + y)[keep], value_limbs(values[keep], e))
+    return acc
+
+
+def tile_accumulate_chunk(values, ix, iy, acc, e: int):
+    """CUDA kernel launch: acc[ix[t], iy[t], f] += limbs(values[t, f]).
+    values (T, nf) float32 or float64, ix/iy (T,) int32 (tasks outside
+    the tile are dropped), acc (Wx, Wy, nf, 3) int64, updated in place."""
+    check_values("tile_accumulate_chunk", values, (ix, iy), acc,
+                 tuple(acc.shape[:2]), e)
+    T, nf = values.shape
+    if T == 0 or nf == 0:
+        return acc
+    lib = cuda.load("accum_tile", _declare)
+    rc = lib.jqc_tile_accumulate_launch(
+        0 if values.dtype == torch.float32 else 1, values.data_ptr(),
+        ix.data_ptr(), iy.data_ptr(), acc.data_ptr(), T, nf, acc.shape[0],
+        acc.shape[1], FRAC_BITS - e, cuda.stream_handle(values.device),
+    )
+    cuda.check(rc, "tile_accumulate_chunk")
+    tile_accumulate_chunk.launches += 1
+    return acc
+
+
+tile_accumulate_chunk.launches = 0
+
+
+def tile_accumulate(values, ix, iy, Wx: int, Wy: int, bound: float):
+    """One stream's chunk contributions -> dense (Wx, Wy, nf) limb tile.
+
+    values (T, nf) float32 or float64; ix/iy (T,) int32 within-supertile
+    shell indices in [0, Wx) / [0, Wy); ``bound``: static bound on
+    |values|.  Returns ((Wx, Wy, nf, 3) int64 limb sums, e);
+    ``tile_limbs_to_f64`` decodes them, and tiles made at one bound add as
+    integers.  Dispatch: the kernel for CUDA tensors, the plain version
+    on the CPU."""
+    e = bound_exponent(bound)
+    acc = torch.zeros((Wx, Wy, values.shape[1], NLIMB), dtype=torch.int64,
+                      device=values.device)
+    if values.device.type == "cuda":
+        tile_accumulate_chunk(values.contiguous(), ix.contiguous(),
+                              iy.contiguous(), acc, e)
+    else:
+        tile_accumulate_plain(values, ix, iy, acc, e)
+    return acc, e
+
+
 __all__ = ["fused_contract_tile", "tile_limbs_to_f64", "contract_tile",
-           "accum_tile_chunk", "accum_tile_plain", "limbs_to_f64",
+           "accum_tile_chunk", "accum_tile_plain", "tile_accumulate",
+           "tile_accumulate_chunk", "tile_accumulate_plain", "limbs_to_f64",
            "StreamTables", "bound_exponent"]

@@ -4,8 +4,9 @@ Every kernel source under ``joltqc_tpu_torch/csrc/`` is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library with a plain C
 interface (no PyTorch headers), loaded with ctypes at first use.  The
 libraries go into ``joltqc_tpu_torch/_build/kernels/`` (listed in
-``.gitignore``), named by a hash of the source, so a checkout builds
-everything it runs from its own sources.  ``build_all`` starts one nvcc
+``.gitignore``), named by a hash of the source and of the shared headers
+(``csrc/*.cuh``), so a checkout builds everything it runs from its own
+sources.  ``build_all`` starts one nvcc
 per source at once.
 """
 
@@ -23,7 +24,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build", "kernels")
-SOURCES = ("eri", "accum_tile")
+SOURCES = ("eri", "accum_tile", "accum_block")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -53,9 +54,13 @@ def _nvcc():
 
 def _so_path(name):
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"libjqc_{name}_{tag}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR,
+                             f"libjqc_{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=SOURCES, verbose=False):

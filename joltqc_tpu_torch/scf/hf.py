@@ -35,6 +35,7 @@ class RHF:
         cutoff_fp32: float = 1e-13,
         cutoff_fp64: float = 1e-6,
         verbose: int = 0,
+        incremental: bool = False,
     ):
         if mol.nelectron % 2:
             raise ValueError("RHF needs an even electron count")
@@ -43,6 +44,10 @@ class RHF:
         self.conv_tol = conv_tol
         self.max_cycle = max_cycle
         self.verbose = verbose
+        # incremental direct SCF (opt-in): Fock builds run on dm - dm_prev
+        # (exact by linearity); the converged tail screens far fewer
+        # tasks, at the cost of one task plan per density-bound bucket
+        self.incremental = incremental
         self.cutoff_fp32 = cutoff_fp32
         self.cutoff_fp64 = cutoff_fp64
         self._setup()
@@ -80,7 +85,10 @@ class RHF:
         return intor_np.overlap(self.mol)
 
     def get_veff(self, dm):
-        vj, vk = self.jk.get_jk(dm)
+        if self.incremental:
+            vj, vk = self.jk.get_jk_incr(dm)
+        else:
+            vj, vk = self.jk.get_jk(dm)
         return vj - 0.5 * vk
 
     def energy_elec(self, dm, h, veff):
@@ -119,8 +127,13 @@ class RHF:
 
         return scan
 
+    def reset_incremental(self):
+        """Drop incremental-SCF caches (start of a fresh SCF run)."""
+        self.jk.reset_incremental()
+
     def kernel(self, dm0=None) -> float:
         t0 = time.time()
+        self.reset_incremental()
         mol = self.mol
         s = self.get_ovlp()
         h = self.get_hcore()

@@ -10,8 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from joltqc_tpu_torch.ops.accum import (
+    accum_block_chunk, block_accumulate, block_accumulate_plain, limbs_to_f64,
+)
 from joltqc_tpu_torch.ops.accum_tile import (
-    _supertile, accum_tile_plain, fused_contract_tile, tile_limbs_to_f64,
+    _supertile, accum_tile_plain, fused_contract_tile, tile_accumulate,
+    tile_accumulate_chunk, tile_accumulate_plain, tile_limbs_to_f64,
 )
 from joltqc_tpu_torch.ops.eri import eri_chunk
 from joltqc_tpu_torch.ops.md import eri_plain
@@ -67,4 +71,49 @@ def test_accum_kernel_matches_plain_and_is_order_free(cuda, dt):
     perm = torch.randperm(T, device=cuda)
     b, _ = fused_contract_tile(G[perm].contiguous(), d[perm].contiguous(),
                                lx[perm], ly[perm], W, W, bound)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_tile_accumulate_kernel_matches_plain_and_is_order_free(cuda, dt):
+    rng = np.random.default_rng(4)
+    T, W, nf = 8192, 64, 36
+    v = torch.as_tensor(rng.standard_normal((T, nf))
+                        * np.exp(rng.uniform(-12, 0, (T, 1))), dtype=dt,
+                        device=cuda)
+    ix = torch.as_tensor(rng.integers(0, W, T), dtype=torch.int32, device=cuda)
+    iy = torch.as_tensor(rng.integers(-1, W + 1, T), dtype=torch.int32,
+                         device=cuda)  # some outside the tile: dropped
+    bound = float(v.abs().max()) * 1.5
+    n0 = tile_accumulate_chunk.launches
+    a, e = tile_accumulate(v, ix, iy, W, W, bound)
+    assert tile_accumulate_chunk.launches == n0 + 1
+    p = tile_accumulate_plain(v, ix, iy, torch.zeros_like(a), e)
+    tol = 1e-13 if dt == torch.float64 else 1e-6
+    err = (tile_limbs_to_f64(a, e) - tile_limbs_to_f64(p, e)).abs().max()
+    assert float(err) < tol * 2.0 ** e
+    perm = torch.randperm(T, device=cuda)
+    b, _ = tile_accumulate(v[perm], ix[perm], iy[perm], W, W, bound)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_block_accumulate_kernel_matches_plain_and_is_order_free(cuda, dt):
+    rng = np.random.default_rng(5)
+    T, nf, nrows = 16384, 9, 256
+    v = torch.as_tensor(rng.standard_normal((T, nf))
+                        * np.exp(rng.uniform(-20, 3, (T, nf))), dtype=dt,
+                        device=cuda)
+    key = torch.as_tensor(rng.integers(-1, nrows + 2, T), dtype=torch.int32,
+                          device=cuda)  # some outside [0, nrows): dropped
+    bound = float(v.abs().max()) * 2
+    n0 = accum_block_chunk.launches
+    a, e = block_accumulate(v, key, nrows, bound)
+    assert accum_block_chunk.launches == n0 + 1
+    p = block_accumulate_plain(v, key, torch.zeros_like(a), e)
+    tol = 1e-13 if dt == torch.float64 else 1e-6
+    err = (limbs_to_f64(a, e) - limbs_to_f64(p, e)).abs().max()
+    assert float(err) < tol * 2.0 ** e
+    perm = torch.randperm(T, device=cuda)
+    b, _ = block_accumulate(v[perm], key[perm], nrows, bound)
     assert torch.equal(a, b)
