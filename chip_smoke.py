@@ -11,6 +11,10 @@ Phases, each printed with its result and wall time on its own line:
   3. accum      kernels B and C (csrc/accum_tile.cu) and D
                 (csrc/accum_block.cu) against their plain versions;
                 bit-identical limbs across runs and task permutations;
+                B and D where their shared windows are stressed (one
+                target, all distinct, runs, random order over many
+                windows, keys outside the rows, the engine's order), D
+                bit for bit;
   4. anchors    RHF H2O/sto-3g and H2O/6-31g against their energies;
                 H2O/sto-3g get_jk in the three accumulation modes with
                 omega, hermi=0 and a stack against the dense oracle;
@@ -21,7 +25,8 @@ Phases, each printed with its result and wall time on its own line:
                 density must be bit-identical; then every kernel template
                 the plan launches is held against its plain version on a
                 chunk of that path, and each kernel and its plain version
-                are timed at the shapes of that path;
+                are timed at the shapes of that path (kernel B on K stream
+                ac and J stream ab);
   6. modes      at the same 302 AO, on the converged density: get_jk of a
                 scatter and a block engine against the tile path's, with
                 kernel D's launches counted; hermi=0, omega and a stack;
@@ -40,6 +45,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -108,14 +114,32 @@ def cuda_ms(fn, reps=5, warm=1):
 
 
 # ------------------------------------------------------------ phase 1
+def _kernel_name(mangled):
+    """'accum_tile_kernel<float>' for the mangled name of one of the
+    port's kernels (float, double and int template arguments); the
+    mangled name where it names none."""
+    m = re.search(r"\d([a-z_]+_kernel)(?:I((?:[fd]|Li\d+E)+)E)?", mangled)
+    if not m:
+        return mangled
+    if not m.group(2):
+        return m.group(1)
+    args = [{"f": "float", "d": "double"}.get(a.group(0), a.group(1))
+            for a in re.finditer(r"[fd]|Li(\d+)E", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
 def phase_build(ctx):
     from joltqc_tpu_torch.ops import cuda
 
     logs = cuda.build_all(verbose=True)
     for name, log in logs.items():
+        fn = "?"
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                say(f"  ptxas {name}: {ln.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                fn = _kernel_name(m.group(1))
+            elif "registers" in ln or "spill" in ln:
+                say(f"  ptxas {name} {fn}: {ln.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -224,9 +248,130 @@ def phase_accum(ctx):
         check(torch.equal(limbs, limbs2), "accum: runs differ")
         check(torch.equal(limbs, limbs3), "accum: permutation changes bits")
     worst_c, worst_d = _accum_cd(dev, rng)
+    nb = _adversarial_b(dev, rng)
+    nd = _adversarial_d(dev, rng)
     return (f"max |kernel - plain| / bound: B {worst:.3e}, C {worst_c:.3e}, "
             f"D {worst_d:.3e} (fp64, tol 1e-13); repeat and permuted runs "
-            "bit-identical")
+            f"bit-identical; {nb} adversarial cases of B and {nd} of D "
+            "(D bit-identical to its plain version)")
+
+
+def _runs(rng, T, hi, longest):
+    """(T,) int32 of runs of one value in [0, hi), run lengths 1..longest"""
+    import numpy as np
+
+    lens = rng.integers(1, longest + 1, T)
+    out = np.repeat(rng.integers(0, hi, T), lens)[:T]
+    return out.astype(np.int32)
+
+
+def _adversarial_b(dev, rng):
+    """Kernel B against its plain version where its shared window is
+    stressed: every task on one target, every target distinct, runs of
+    one target, tasks in random order over many windows (the global
+    route) and sorted by window; with and without weights.  Each is held
+    by ``_held``: the plain version within ACC_TOL, repeat and permuted
+    launches bit-identical.  Returns the number of cases."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.ops import accum_tile as at
+    from joltqc_tpu_torch.ops.eri import tier_dtype
+
+    nfxy, nfo = 6, 9
+    n = 0
+    for tier in ("f32", "fp64"):
+        T = 8192
+        one = np.full(T, 5, np.int32)
+        grid = rng.permutation(64 * 64).astype(np.int32)
+        # a 256 x 256 tile: 16 of the kernel's 64 x 64 windows
+        rand = rng.integers(0, 256, (2, T)).astype(np.int32)
+        order = np.argsort((rand[0] // 64) * 4 + rand[1] // 64, kind="stable")
+        cases = (  # (name, lx, ly, tile edge W, weighted)
+            ("one target", one, one, 64, False),
+            ("distinct", grid // 64, grid % 64, 64, True),
+            ("runs", _runs(rng, T, 64, 100), _runs(rng, T, 64, 100), 64,
+             True),
+            ("random over 16 windows", rand[0], rand[1], 256, True),
+            ("sorted by window", rand[0][order], rand[1][order], 256, False),
+        )
+        for name, lx, ly, W, weighted in cases:
+            Tc = lx.shape[0]
+            dt = tier_dtype(tier)
+            G = torch.as_tensor(rng.standard_normal((Tc, nfxy, nfo)) * np.exp(
+                rng.uniform(-10, 0, (Tc, 1, 1))), dtype=dt, device=dev)
+            d = torch.as_tensor(rng.standard_normal((Tc, nfo)), dtype=dt,
+                                device=dev)
+            w = (torch.as_tensor(2.0 ** -rng.integers(0, 3, Tc),
+                                 dtype=torch.float32, device=dev)
+                 if weighted else None)
+            lxt = torch.as_tensor(lx, device=dev)
+            lyt = torch.as_tensor(ly, device=dev)
+            bound = float(G.abs().amax() * d.abs().amax()) * nfo * 2
+            e = at.bound_exponent(bound)
+
+            def launch(acc, p):
+                Gp, dp, xp, yp = _permuted(p, G, d, lxt, lyt)
+                wp = None if w is None else _permuted(p, w)[0]
+                got, _ = at._supertile(at.accum_tile_chunk, Gp, dp, xp, yp, W,
+                                       W, bound, w=wp)
+                acc.add_(got.view(acc.shape))
+
+            def plain(acc):
+                got, _ = at._supertile(at.accum_tile_plain, G, d, lxt, lyt, W,
+                                       W, bound, w=w)
+                acc.add_(got.view(acc.shape))
+
+            _held(dev, f"accum_tile {tier} {name}", tier, e, (W, W, nfxy, 3),
+                  Tc, launch, plain)
+            n += 1
+    return n
+
+
+def _adversarial_d(dev, rng):
+    """Kernel D against its plain version, bit for bit: every task on one
+    row, every row distinct, rows in random order with keys outside [0,
+    nrows), and the engine's order (groups of 64 rows, gslot
+    non-decreasing, runs of one row) at nf 3 and 36; repeat and permuted
+    launches give the same bits.  Returns the number of cases."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.ops import accum as ac
+    from joltqc_tpu_torch.ops.eri import tier_dtype
+
+    n = 0
+    for tier in ("fp64", "f32"):
+        gs = np.sort(rng.integers(0, 512, 200_000))
+        sorted_keys = (gs * 64 + _runs(rng, gs.shape[0], 64, 40)).astype(
+            np.int32)
+        cases = (  # (name, key, nf, nrows)
+            ("one row", np.full(65_536, 7, np.int32), 3, 16),
+            ("distinct rows", rng.permutation(16_384).astype(np.int32), 3,
+             16_384),
+            ("random, keys outside", rng.integers(-1, 4098, 131_072).astype(
+                np.int32), 9, 4096),
+            ("engine order nf 3", sorted_keys, 3, 512 * 64),
+            ("engine order nf 36", sorted_keys[:60_000], 36, 512 * 64),
+            ("one row nf 1", np.full(50_000, 3, np.int32), 1, 8),
+        )
+        for name, key, nf, nrows in cases:
+            T = key.shape[0]
+            v = torch.as_tensor(rng.standard_normal((T, nf)) * np.exp(
+                rng.uniform(-20, 3, (T, nf))), dtype=tier_dtype(tier),
+                device=dev)
+            kt = torch.as_tensor(key, device=dev)
+            e = ac.bound_exponent(float(v.abs().max()) * 2)
+            what = f"accum_block {tier} {name}"
+
+            def launch(acc, p):
+                ac.accum_block_chunk(*_permuted(p, v, kt), acc, e)
+
+            _, acc_k, acc_p = _held(
+                dev, what, tier, e, (nrows, nf, ac.NLIMB), T, launch,
+                lambda acc: ac.block_accumulate_plain(v, kt, acc, e))
+            check(torch.equal(acc_k, acc_p), f"{what}: not bit-identical to "
+                  "the plain version")
+            n += 1
+    return n
 
 
 def _permuted(perm, *tensors):
@@ -467,8 +612,13 @@ def _profile_jk(eng, dm, wall, label):
     for us, key, n in rows[:6]:
         say(f"  profile {label}: {us / 1e3:10.3f} ms  x{n:<5d} {key[:70]}")
     eri = sum(us for us, key, _ in rows if "eri_kernel" in key)
+    # kernel B is contract_kernel + accum_tile_kernel; D accum_block_kernel
+    acc = [(us, n) for us, key, n in rows if "contract_kernel" in key
+           or "accum_tile_kernel" in key or "accum_block_kernel" in key]
     say(f"  profile {label}: device busy {dev_total / 1e3:.3f} ms (eri "
-        f"kernels {eri / 1e3:.3f} ms) of {wall * 1e3:.3f} ms wall")
+        f"kernels {eri / 1e3:.3f} ms, accumulation kernels B/D "
+        f"{sum(us for us, _ in acc) / 1e3:.3f} ms in "
+        f"{sum(n for _, n in acc)} kernel runs) of {wall * 1e3:.3f} ms wall")
 
 
 def _fock_bounds(eng):
@@ -666,19 +816,42 @@ def _time_kernels(ctx, mf):
         f"{ms_a:.3f} ms, plain {plain_a:.3f} ms, bound {bound_a:.4f} ms "
         f"({flops_a:.3e} flop, {bytes_a:.3e} B)")
 
-    # ---- kernel B: the K stream ac of the same chunk
-    s = 2
-    kind, xi, yi, ui, vi, _ = STREAMS[s]
+    # ---- kernel B: the K stream ac of the same chunk (the table's row),
+    # and J stream ab (every task of a bra run on one target)
     dm = torch.as_tensor(
         eng.layout.dm_to_internal(mf.dm), dtype=tier_dtype(tier),
         device=eng.device).contiguous()
+    for s in (2, 0):
+        row = _time_b_stream(eng, entry, s, G, tbls, idx, w, dm, es)
+        if s == 2:
+            ctx["kern_b"] = dict(
+                name="accum_tile_chunk", route="cuda",
+                source="joltqc_tpu_torch/csrc/accum_tile.cu",
+                replaces="joltqc_tpu/ops/accum_tile.py:367",
+                launches=ctx["launches"]["accum_tile"],
+                max_abs_err=worst["accum_tile"], **row)
+
+
+def _time_b_stream(eng, entry, s, G, tbls, idx, w, dm, es):
+    """Kernel B on stream s of a chunk: ms per launch (and its split
+    between the two kernels), the plain version's, one index_add_ of the
+    contracted values (the yardstick) and the byte bound."""
+    import torch
+    from joltqc_tpu_torch.ops import accum_tile as at
+    from joltqc_tpu_torch.scf.jk_contracted import STREAMS
+
+    kind, xi, yi, ui, vi, _ = STREAMS[s]
+    tier = entry["tier"]
+    T = idx[0].shape[0]
     args = _accum_args(eng, entry, s, G, tbls, idx, w, dm)
     tabs = args[1]
     _, E = eng._espace()
     e = at.bound_exponent(entry["bound"])
     accs = [torch.zeros((E, E, at.NLIMB), dtype=torch.int64,
                         device=eng.device) for _ in range(2)]
-    ms_b = cuda_ms(lambda: at.accum_tile_chunk(*args, accs[0], e))
+    ms_b = cuda_ms(lambda: at.accum_tile_chunk(*args, accs[0], e), reps=20)
+    split = _kernel_split(lambda: at.accum_tile_chunk(*args, accs[0], e),
+                          reps=20)
     plain_b = cuda_ms(lambda: at.accum_tile_plain(*args, accs[1], e))
     # yardstick: one index_add_ of the already-contracted values
     nfxy, nfo = tabs.nfxy, tabs.nfo
@@ -691,26 +864,45 @@ def _time_kernels(ctx, mf):
     cols = tbls[yi]["erow"][idx[yi].long()].long()[:, None] + tabs.coff.long()
     flat = (rows * E + cols).reshape(-1)
     acc64 = torch.zeros(E * E, dtype=torch.float64, device=eng.device)
-    lib_b = cuda_ms(lambda: acc64.index_add_(0, flat, v))
+    lib_b = cuda_ms(lambda: acc64.index_add_(0, flat, v), reps=20)
     ntgt = int(torch.unique(flat).numel())
     bytes_b = T * (nfxy * nfo * es + nfo * es + 16 + 4) + ntgt * 24
     flops_b = 2.0 * T * nfxy * nfo
     bound_b = max(bytes_b / PEAK_BYTES, flops_b / PEAK_FLOPS[tier]) * 1e3
-    ctx["kern_b"] = dict(
-        name="accum_tile_chunk", route="cuda",
-        source="joltqc_tpu_torch/csrc/accum_tile.cu",
-        replaces="joltqc_tpu/ops/accum_tile.py:367",
-        launches=ctx["launches"]["accum_tile"],
-        max_abs_err=worst["accum_tile"], ms=ms_b, plain_ms=plain_b,
-        bound_ms=bound_b,
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+    say(f"  time accum_tile: stream {kind}{'abcd'[xi]}{'abcd'[yi]} T={T} "
+        f"nfxy={nfxy} nfo={nfo}: kernel {ms_b:.4f} ms ({parts}), plain "
+        f"{plain_b:.3f} ms, index_add_ {lib_b:.4f} ms, bound {bound_b:.4f} "
+        f"ms ({bytes_b:.3e} B, {ntgt} targets)")
+    return dict(
+        ms=ms_b, plain_ms=plain_b, bound_ms=bound_b,
         bound_by="bytes" if bytes_b / PEAK_BYTES
         >= flops_b / PEAK_FLOPS[tier] else "operations",
-        library_ms=lib_b,
-    )
-    say(f"  time accum_tile: stream {kind}{'abcd'[xi]}{'abcd'[yi]} T={T} "
-        f"nfxy={nfxy} nfo={nfo}: kernel {ms_b:.3f} ms, plain {plain_b:.3f} "
-        f"ms, index_add_ {lib_b:.3f} ms, bound {bound_b:.4f} ms "
-        f"({bytes_b:.3e} B, {ntgt} targets)")
+        library_ms=lib_b)
+
+
+def _kernel_split(fn, reps):
+    """Device ms per call of fn() by CUDA kernel name (torch.profiler),
+    keyed by the kernel's short name; {} where the profiler records no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.split(r"[<(]", ev.key.split("::", 1)[-1])[0]
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
 
 
 # ------------------------------------------------------------ phase 6
@@ -872,8 +1064,8 @@ def _held_and_timed(dev, what, tier, e, shape, T, launch, plain, library):
     library ms)."""
     err, acc_k, acc_p = _held(dev, f"{what} at the main path's shapes", tier,
                               e, shape, T, launch, plain)
-    return (err, cuda_ms(lambda: launch(acc_k, None)),
-            cuda_ms(lambda: plain(acc_p)), cuda_ms(library))
+    return (err, cuda_ms(lambda: launch(acc_k, None), reps=20),
+            cuda_ms(lambda: plain(acc_p), reps=20), cuda_ms(library, reps=20))
 
 
 def _time_cd(ctx, mf, eng_b):

@@ -14,16 +14,19 @@ Port of ``joltqc_tpu/ops/accum_tile.py``: ``fused_contract_tile`` and
      STATIC bound 2^e >= |V| (a host bound, never a data-dependent max):
      |V| * 2^(120 - e) is split into three 40-bit limbs of V's sign;
   3. add the limbs into the int64 accumulator element
-     (rmap[ix[t]] + roff[f], cmap[iy[t]] + coff[f]).
+     (rmap[ix[t]] + roff[f], cmap[iy[t]] + coff[f]); the kernel sums the
+     tasks of one 64 x 64 block of shells (a supertile of the plan's
+     task order) in shared memory first.
 
 Integer addition is associative, so the accumulator is bit-identical for
 any task order and any launch split; ``limbs_to_f64`` decodes it once.
 CPU tensors run ``accum_tile_plain``; CUDA tensors launch the kernel
-(csrc/accum_tile.cu) through ``accum_tile_chunk``.
+(csrc/accum_tile.cu: a contraction pass for step 1, then steps 2 and 3)
+through ``accum_tile_chunk``.
 
 ``tile_accumulate`` is steps 2 and 3 alone: values (T, nf) go to
 ``out[ix[t], iy[t], f]`` of a dense (Wx, Wy, nf) tile of limb sums (the
-second kernel of csrc/accum_tile.cu through ``tile_accumulate_chunk``,
+last kernel of csrc/accum_tile.cu through ``tile_accumulate_chunk``,
 ``tile_accumulate_plain`` on the CPU).  No path of the J/K engine calls
 it, in this package as in the reference; it is a public function.
 """
@@ -96,7 +99,7 @@ def accum_tile_plain(G, tabs: StreamTables, dsrc, dstride, du, dv, rx, ry,
 def _declare(lib):
     lib.jqc_accum_tile_launch.restype = ctypes.c_int
     lib.jqc_accum_tile_launch.argtypes = [
-        ctypes.c_int, ctypes.c_void_p * 16, ctypes.c_int * 4,
+        ctypes.c_int, ctypes.c_void_p * 17, ctypes.c_int * 4,
         ctypes.c_longlong * 4, ctypes.c_double, ctypes.c_void_p,
     ]
     lib.jqc_tile_accumulate_launch.restype = ctypes.c_int
@@ -120,7 +123,8 @@ def accum_tile_chunk(G, tabs: StreamTables, dsrc, dstride, du, dv, rx, ry,
     G: (T, n1, n2) tier dtype, task-major or component-major (the view
     ``eri_chunk`` returns); dsrc: density in G's dtype; du/dv/rx/ry:
     (per-task index int32 (T,), map int32) pairs; w: (T,) float32 or
-    None; acc: (rows, ncols, 3) int64, updated in place."""
+    None; acc: (rows, ncols, 3) int64, updated in place.  Scratch: the
+    contracted values, (nfxy, T) in G's dtype."""
     dev = G.device
     if dev.type != "cuda":
         raise ValueError("accum_tile_chunk needs CUDA tensors")
@@ -153,6 +157,7 @@ def accum_tile_chunk(G, tabs: StreamTables, dsrc, dstride, du, dv, rx, ry,
     g_st, g_sf = _g_strides(G)
     if T == 0:
         return acc
+    V = torch.empty((tabs.nfxy, T), dtype=G.dtype, device=dev)
     lib = cuda.load("accum_tile", _declare)
     ptrs = [G.data_ptr(), tabs.gidx.data_ptr(), dsrc.data_ptr(),
             du[0].data_ptr(), du[1].data_ptr(), dv[0].data_ptr(),
@@ -160,10 +165,10 @@ def accum_tile_chunk(G, tabs: StreamTables, dsrc, dstride, du, dv, rx, ry,
             None if w is None else w.data_ptr(),
             rx[0].data_ptr(), rx[1].data_ptr(), tabs.roff.data_ptr(),
             ry[0].data_ptr(), ry[1].data_ptr(), tabs.coff.data_ptr(),
-            acc.data_ptr()]
+            acc.data_ptr(), V.data_ptr()]
     rc = lib.jqc_accum_tile_launch(
         0 if G.dtype == torch.float32 else 1,
-        (ctypes.c_void_p * 16)(*ptrs),
+        (ctypes.c_void_p * 17)(*ptrs),
         (ctypes.c_int * 4)(tabs.nfxy, tabs.nfo, FRAC_BITS - e, T),
         (ctypes.c_longlong * 4)(g_st, g_sf, dstride, acc.shape[1]),
         float(tabs.fac), cuda.stream_handle(dev),
@@ -193,9 +198,10 @@ def fused_contract_tile(G, d, lx, ly, Wx: int, Wy: int, bound: float):
     return _supertile(contract_tile, G, d, lx, ly, Wx, Wy, bound)
 
 
-def _supertile(fn, G, d, lx, ly, Wx, Wy, bound):
+def _supertile(fn, G, d, lx, ly, Wx, Wy, bound, w=None):
     """``fused_contract_tile`` through ``fn`` (``contract_tile``, or
-    ``accum_tile_plain`` to hold the kernel against on the card)."""
+    ``accum_tile_plain`` or ``accum_tile_chunk`` to hold the kernel
+    against on the card), with task weights ``w`` (T,) float32 or None."""
     T, nfxy, nfo = G.shape
     dev = G.device
 
@@ -218,7 +224,7 @@ def _supertile(fn, G, d, lx, ly, Wx, Wy, bound):
         (zero, zero[:1].contiguous()),
         (i32(lx), i32(torch.arange(Wx, device=dev))),
         (i32(ly), i32(torch.arange(Wy, device=dev) * nfxy)),
-        None, acc, e,
+        w, acc, e,
     )
     return acc.view(Wx, Wy, nfxy, NLIMB), e
 

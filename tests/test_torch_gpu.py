@@ -11,11 +11,13 @@ import pytest
 import torch
 
 from joltqc_tpu_torch.ops.accum import (
-    accum_block_chunk, block_accumulate, block_accumulate_plain, limbs_to_f64,
+    accum_block_chunk, block_accumulate, block_accumulate_plain,
+    bound_exponent, limbs_to_f64,
 )
 from joltqc_tpu_torch.ops.accum_tile import (
-    _supertile, accum_tile_plain, fused_contract_tile, tile_accumulate,
-    tile_accumulate_chunk, tile_accumulate_plain, tile_limbs_to_f64,
+    _supertile, accum_tile_chunk, accum_tile_plain, fused_contract_tile,
+    tile_accumulate, tile_accumulate_chunk, tile_accumulate_plain,
+    tile_limbs_to_f64,
 )
 from joltqc_tpu_torch.ops.eri import eri_chunk
 from joltqc_tpu_torch.ops.md import eri_plain
@@ -117,3 +119,106 @@ def test_block_accumulate_kernel_matches_plain_and_is_order_free(cuda, dt):
     perm = torch.randperm(T, device=cuda)
     b, _ = block_accumulate(v[perm], key[perm], nrows, bound)
     assert torch.equal(a, b)
+
+
+def _runs(rng, T, hi, longest):
+    """(T,) int32 runs of one value in [0, hi), lengths 1..longest"""
+    lens = rng.integers(1, longest + 1, T)
+    return np.repeat(rng.integers(0, hi, T), lens)[:T].astype(np.int32)
+
+
+# kernel B's shared window (64 x 64 shells) under stress: (case, tile
+# edge W); a 256 x 256 tile spans 16 windows
+B_CASES = [("one target", 64), ("distinct", 64), ("runs", 64),
+           ("random over 16 windows", 256), ("sorted by window", 256)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case,W", B_CASES)
+def test_accum_kernel_window_cases(cuda, dt, case, W):
+    """Kernel B against its plain version where its window is stressed:
+    every task on one target, every target distinct, runs of one target,
+    tasks in random order over many windows (the global route) and sorted
+    by window; with symmetry weights.  A repeat and a permuted launch give
+    the same bits."""
+    rng = np.random.default_rng(6)
+    nfxy, nfo, T = 6, 9, 8192
+    if case == "one target":
+        lx = ly = np.full(T, 5, np.int32)
+    elif case == "distinct":
+        g = rng.permutation(W * W).astype(np.int32)
+        lx, ly, T = g // W, g % W, W * W
+    elif case == "runs":
+        lx, ly = _runs(rng, T, W, 100), _runs(rng, T, W, 100)
+    else:
+        lx, ly = rng.integers(0, W, (2, T)).astype(np.int32)
+        if case.startswith("sorted"):
+            order = np.argsort((lx // 64) * 4 + ly // 64, kind="stable")
+            lx, ly = lx[order], ly[order]
+    G = torch.as_tensor(rng.standard_normal((T, nfxy, nfo)) * np.exp(
+        rng.uniform(-10, 0, (T, 1, 1))), dtype=dt, device=cuda)
+    d = torch.as_tensor(rng.standard_normal((T, nfo)), dtype=dt, device=cuda)
+    w = torch.as_tensor(2.0 ** -rng.integers(0, 3, T), dtype=torch.float32,
+                        device=cuda)
+    lxt = torch.as_tensor(lx, device=cuda)
+    lyt = torch.as_tensor(ly, device=cuda)
+    bound = float(G.abs().max() * d.abs().max()) * nfo * 2
+
+    def kernel(perm):
+        args = [G, d, lxt, lyt, w]
+        if perm is not None:
+            args = [a[perm].contiguous() for a in args]
+        return _supertile(accum_tile_chunk, *args[:4], W, W, bound,
+                          w=args[4])
+
+    a, e = kernel(None)
+    p, _ = _supertile(accum_tile_plain, G, d, lxt, lyt, W, W, bound, w=w)
+    tol = 1e-13 if dt == torch.float64 else 1e-6
+    err = (tile_limbs_to_f64(a, e) - tile_limbs_to_f64(p, e)).abs().max()
+    assert float(err) < tol * 2.0 ** e
+    assert torch.equal(a, kernel(None)[0])
+    assert torch.equal(a, kernel(torch.randperm(T, device=cuda))[0])
+
+
+D_CASES = ["one row", "distinct rows", "random, keys outside",
+           "engine order nf 3", "engine order nf 36", "one row nf 1"]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", D_CASES)
+def test_block_kernel_window_cases_bit_identical(cuda, dt, case):
+    """Kernel D against its plain version, bit for bit, where its window
+    is stressed: every task on one row, every row distinct, rows in
+    random order with keys outside [0, nrows), and the engine's order
+    (groups of 64 rows, gslot non-decreasing, runs of one row); a repeat
+    and a permuted launch give the same bits."""
+    rng = np.random.default_rng(7)
+    if case.startswith("one row"):
+        nf, nrows = (1, 8) if case.endswith("nf 1") else (3, 16)
+        key = np.full(50_000, 3, np.int32)
+    elif case == "distinct rows":
+        nf, nrows = 3, 16_384
+        key = rng.permutation(nrows).astype(np.int32)
+    elif case == "random, keys outside":
+        nf, nrows = 9, 4096
+        key = rng.integers(-1, nrows + 2, 131_072).astype(np.int32)
+    else:
+        nf, nrows = int(case.split()[-1]), 512 * 64
+        gs = np.sort(rng.integers(0, 512, 100_000 if nf == 3 else 30_000))
+        key = (gs * 64 + _runs(rng, gs.shape[0], 64, 40)).astype(np.int32)
+    T = key.shape[0]
+    v = torch.as_tensor(rng.standard_normal((T, nf))
+                        * np.exp(rng.uniform(-20, 3, (T, nf))), dtype=dt,
+                        device=cuda)
+    kt = torch.as_tensor(key, device=cuda)
+    e = bound_exponent(float(v.abs().max()) * 2)
+    acc = [torch.zeros((nrows, nf, 3), dtype=torch.int64, device=cuda)
+           for _ in range(4)]
+    accum_block_chunk(v, kt, acc[0], e)
+    block_accumulate_plain(v, kt, acc[1], e)
+    accum_block_chunk(v, kt, acc[2], e)
+    perm = torch.randperm(T, device=cuda)
+    accum_block_chunk(v[perm].contiguous(), kt[perm].contiguous(), acc[3], e)
+    assert bool(acc[0].any())
+    assert torch.equal(acc[0], acc[1])
+    assert torch.equal(acc[0], acc[2]) and torch.equal(acc[0], acc[3])
