@@ -4,29 +4,36 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each printed with its result and wall time on its own line:
-  1. build      nvcc builds every kernel (csrc/*.cu, all at once); the
-                card's name and power limit from nvidia-smi;
-  2. eri        kernel A (csrc/eri.cu) against its plain PyTorch version
-                on the card, both tiers and omega > 0;
+  1. build      nvcc builds every kernel library (one per csrc/*.cu,
+                csrc/eri_class.cu once per class group; all at once),
+                with each library's seconds and each kernel's registers
+                and spills; the card's name and power limit from
+                nvidia-smi;
+  2. eri        kernel A against its plain PyTorch version on the card:
+                every specialised class (csrc/eri_class.cu) in both
+                tiers, omega > 0, and the generic route (csrc/eri.cu),
+                whose launches the route counter must count exactly;
   3. accum      kernels B and C (csrc/accum_tile.cu) and D
                 (csrc/accum_block.cu) against their plain versions;
                 bit-identical limbs across runs and task permutations;
-                B and D where their shared windows are stressed (one
+                B, C and D where their shared windows are stressed (one
                 target, all distinct, runs, random order over many
-                windows, keys outside the rows, the engine's order), D
-                bit for bit;
+                windows, keys or tasks outside, the engine's order), C
+                and D bit for bit;
   4. anchors    RHF H2O/sto-3g and H2O/6-31g against their energies;
                 H2O/sto-3g get_jk in the three accumulation modes with
                 omega, hermi=0 and a stack against the dense oracle;
                 incremental RHF against the direct energy;
   5. full       RHF 0029-elongated-halogenated/6-31g* (302 AO) to
                 convergence against its recorded energy, with every
-                kernel launch counted; get_jk twice on the converged
-                density must be bit-identical; then every kernel template
-                the plan launches is held against its plain version on a
-                chunk of that path, and each kernel and its plain version
-                are timed at the shapes of that path (kernel B on K stream
-                ac and J stream ab);
+                kernel launch counted and none of kernel A's on the
+                generic route; get_jk twice on the converged density must
+                be bit-identical; kernel A's device time over one get_jk
+                by class; then every (tier, class) the plan launches, with
+                kernel B on each one's G, is held against its plain
+                version on a chunk of that path, and each kernel and its
+                plain version are timed at the shapes of that path
+                (kernel B on K stream ac and J stream ab);
   6. modes      at the same 302 AO, on the converged density: get_jk of a
                 scatter and a block engine against the tile path's, with
                 kernel D's launches counted; hermi=0, omega and a stack;
@@ -62,16 +69,14 @@ XYZ_0029 = os.path.join(HERE, "benchmarks", "molecules",
 E_0029 = -1402.5884858139
 
 # peak rates of one H100 SXM at 700 W (NVIDIA data sheet): HBM bytes/s,
-# and FLOP/s for fp32 outside the tensor cores and fp64 (tensor cores)
+# and FLOP/s outside the tensor cores (kernel A's scalar FFMA and DFMA):
+# 67 TFLOP/s fp32, 34 TFLOP/s fp64 (67 is fp64 on the tensor cores)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "fp64": 67e12}
+PEAK_FLOPS = {"f32": 67e12, "fp64": 34e12}
 
-ERI_CASES = [  # (ls, nprims)
-    ((0, 0, 0, 0), (3, 3, 3, 3)),
-    ((1, 0, 1, 0), (2, 1, 2, 1)),
-    ((1, 1, 1, 1), (1, 3, 1, 1)),
-    ((2, 1, 1, 0), (1, 1, 3, 1)),
-    ((2, 2, 2, 2), (1, 1, 1, 1)),
+# kernel A's generic route: l = 3, 4 and a non-canonical tuple (ls, nprims)
+ERI_GENERIC_CASES = [
+    ((0, 1, 0, 0), (3, 1, 3, 3)),
     ((3, 2, 1, 0), (1, 1, 1, 1)),
     ((4, 2, 1, 0), (1, 1, 1, 1)),
 ]
@@ -115,16 +120,18 @@ def cuda_ms(fn, reps=5, warm=1):
 
 # ------------------------------------------------------------ phase 1
 def _kernel_name(mangled):
-    """'accum_tile_kernel<float>' for the mangled name of one of the
-    port's kernels (float, double and int template arguments); the
-    mangled name where it names none."""
-    m = re.search(r"\d([a-z_]+_kernel)(?:I((?:[fd]|Li\d+E)+)E)?", mangled)
+    """'accum_tile_kernel<float, false>' for the mangled name of one of
+    the port's kernels (float, double, int and bool template arguments);
+    the mangled name where it names none."""
+    m = re.search(r"\d([a-z_]+_kernel)(?:I((?:[fd]|L[ib]\d+E)+)E)?",
+                  mangled)
     if not m:
         return mangled
     if not m.group(2):
         return m.group(1)
-    args = [{"f": "float", "d": "double"}.get(a.group(0), a.group(1))
-            for a in re.finditer(r"[fd]|Li(\d+)E", m.group(2))]
+    names = {"f": "float", "d": "double", "Lb0E": "false", "Lb1E": "true"}
+    args = [names.get(a.group(0), a.group(1))
+            for a in re.finditer(r"[fd]|Lb[01]E|Li(\d+)E", m.group(2))]
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
@@ -140,6 +147,8 @@ def phase_build(ctx):
                 fn = _kernel_name(m.group(1))
             elif "registers" in ln or "spill" in ln:
                 say(f"  ptxas {name} {fn}: {ln.strip()}")
+    say("  nvcc seconds by library: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(cuda.build_seconds.items())))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -166,15 +175,24 @@ def _rand_quartet(nprims, T, tier, seed, dev):
 
 
 def phase_eri(ctx):
+    """Kernel A against its plain version: every specialised class in both
+    tiers (nprims as 6-31g*'s: 1 for d, 3 below), omega = 0 and 0.3 on
+    one class per source, the generic route's cases, and the engine's
+    indexed form.  The route counter must count exactly the generic
+    cases."""
     import torch
-    from joltqc_tpu_torch.ops.eri import eri_chunk
+    from joltqc_tpu_torch.ops.eri import ERI_CLASSES, eri_chunk
     from joltqc_tpu_torch.ops.md import eri_plain
 
     dev = torch.device("cuda")
     worst = {"f32": 0.0, "fp64": 0.0}
-    cases = [(ls, npr, 0.0) for ls, npr in ERI_CASES]
-    cases.append(((1, 0, 1, 0), (2, 1, 2, 1), 0.33))
-    cases.append(((2, 1, 1, 0), (1, 1, 3, 1), 0.2))
+    cases = [(ls, tuple(1 if l == 2 else 3 for l in ls), 0.0)
+             for ls in ERI_CLASSES]
+    cases += [(ls, (1, 3, 3, 3), 0.3) for ls in
+              ((1, 1, 1, 0), (2, 0, 1, 0), (2, 1, 1, 0), (2, 2, 1, 0))]
+    cases += [(ls, npr, om) for ls, npr in ERI_GENERIC_CASES
+              for om in (0.0, 0.2)]
+    n0, g0 = eri_chunk.launches, eri_chunk.generic_launches
     for tier in ("f32", "fp64"):
         for ls, nprims, omega in cases:
             T = 256
@@ -187,21 +205,27 @@ def phase_eri(ctx):
             check(torch.isfinite(got).all(), f"eri {tier} {ls}: non-finite")
             check(err < ERI_TOL[tier],
                   f"eri {tier} {ls} omega={omega}: rel err {err:.3e}")
+    ngen = 2 * 2 * len(ERI_GENERIC_CASES)
+    check(eri_chunk.launches - n0 == 2 * len(cases)
+          and eri_chunk.generic_launches - g0 == ngen,
+          f"eri: {eri_chunk.generic_launches - g0} generic launches of "
+          f"{eri_chunk.launches - n0}, want {ngen} of {2 * len(cases)}")
     # engine form: per-class tables + int32 row indices, gathered inside
-    ls, nprims = (2, 1, 1, 0), (1, 1, 3, 1)
-    tab = _rand_quartet(nprims, 50, "fp64", seed=3, dev=dev)
-    idx = torch.randint(0, 50, (4, 4096), generator=torch.Generator(
-        device="cpu").manual_seed(5)).to(torch.int32).to(dev)
-    got = eri_chunk("fp64", ls, nprims, tab, 0.0, idx=tuple(idx))
-    gq = {f"{n}_{x}": tab[f"{n}_{x}"][idx[k].long()]
-          for k, x in enumerate("abcd") for n in ("coord", "exps", "coefs")}
-    ref = eri_plain(ls, nprims, gq, 0.0)
-    err = float((got - ref).abs().max() / ref.abs().max())
-    check(err < ERI_TOL["fp64"], f"eri indexed form: rel err {err:.3e}")
-    worst["fp64"] = max(worst["fp64"], err)
-    return (f"{len(cases)} cases x 2 tiers + indexed form; max rel err "
-            f"f32 {worst['f32']:.3e} (tol 2e-5) fp64 {worst['fp64']:.3e} "
-            f"(tol 1e-12)")
+    for ls, nprims in (((2, 1, 1, 0), (1, 1, 3, 1)),
+                       ((3, 2, 1, 0), (1, 1, 1, 1))):
+        tab = _rand_quartet(nprims, 50, "fp64", seed=3, dev=dev)
+        idx = torch.randint(0, 50, (4, 4096), generator=torch.Generator(
+            device="cpu").manual_seed(5)).to(torch.int32).to(dev)
+        got = eri_chunk("fp64", ls, nprims, tab, 0.0, idx=tuple(idx))
+        ref = eri_plain(ls, nprims, _gathered(tab, idx), 0.0)
+        err = float((got - ref).abs().max() / ref.abs().max())
+        check(err < ERI_TOL["fp64"], f"eri indexed form {ls}: rel err "
+              f"{err:.3e}")
+        worst["fp64"] = max(worst["fp64"], err)
+    return (f"{len(cases)} cases x 2 tiers ({len(ERI_CLASSES)} specialised "
+            f"classes, {ngen} generic launches as expected) + indexed form; "
+            f"max rel err f32 {worst['f32']:.3e} (tol 2e-5) fp64 "
+            f"{worst['fp64']:.3e} (tol 1e-12)")
 
 
 # ------------------------------------------------------------ phase 3
@@ -249,11 +273,12 @@ def phase_accum(ctx):
         check(torch.equal(limbs, limbs3), "accum: permutation changes bits")
     worst_c, worst_d = _accum_cd(dev, rng)
     nb = _adversarial_b(dev, rng)
+    nc = _adversarial_c(dev, rng)
     nd = _adversarial_d(dev, rng)
     return (f"max |kernel - plain| / bound: B {worst:.3e}, C {worst_c:.3e}, "
             f"D {worst_d:.3e} (fp64, tol 1e-13); repeat and permuted runs "
-            f"bit-identical; {nb} adversarial cases of B and {nd} of D "
-            "(D bit-identical to its plain version)")
+            f"bit-identical; {nb} adversarial cases of B, {nc} of C and {nd} "
+            "of D (C and D bit-identical to their plain versions)")
 
 
 def _runs(rng, T, hi, longest):
@@ -280,21 +305,8 @@ def _adversarial_b(dev, rng):
     nfxy, nfo = 6, 9
     n = 0
     for tier in ("f32", "fp64"):
-        T = 8192
-        one = np.full(T, 5, np.int32)
-        grid = rng.permutation(64 * 64).astype(np.int32)
-        # a 256 x 256 tile: 16 of the kernel's 64 x 64 windows
-        rand = rng.integers(0, 256, (2, T)).astype(np.int32)
-        order = np.argsort((rand[0] // 64) * 4 + rand[1] // 64, kind="stable")
-        cases = (  # (name, lx, ly, tile edge W, weighted)
-            ("one target", one, one, 64, False),
-            ("distinct", grid // 64, grid % 64, 64, True),
-            ("runs", _runs(rng, T, 64, 100), _runs(rng, T, 64, 100), 64,
-             True),
-            ("random over 16 windows", rand[0], rand[1], 256, True),
-            ("sorted by window", rand[0][order], rand[1][order], 256, False),
-        )
-        for name, lx, ly, W, weighted in cases:
+        for name, lx, ly, W in _window_cases(rng, 8192):
+            weighted = name not in ("one target", "sorted by window")
             Tc = lx.shape[0]
             dt = tier_dtype(tier)
             G = torch.as_tensor(rng.standard_normal((Tc, nfxy, nfo)) * np.exp(
@@ -324,6 +336,64 @@ def _adversarial_b(dev, rng):
             _held(dev, f"accum_tile {tier} {name}", tier, e, (W, W, nfxy, 3),
                   Tc, launch, plain)
             n += 1
+    return n
+
+
+def _window_cases(rng, T):
+    """(name, lx, ly, tile edge W) where a 64 x 64 shared window is
+    stressed: every task on one target, every target distinct, runs of
+    one target, tasks in random order over 16 windows of a 256 x 256
+    tile (the global route) and sorted by window."""
+    import numpy as np
+
+    one = np.full(T, 5, np.int32)
+    grid = rng.permutation(64 * 64).astype(np.int32)
+    rand = rng.integers(0, 256, (2, T)).astype(np.int32)
+    order = np.argsort((rand[0] // 64) * 4 + rand[1] // 64, kind="stable")
+    return (("one target", one, one, 64),
+            ("distinct", grid // 64, grid % 64, 64),
+            ("runs", _runs(rng, T, 64, 100), _runs(rng, T, 64, 100), 64),
+            ("random over 16 windows", rand[0], rand[1], 256),
+            ("sorted by window", rand[0][order], rand[1][order], 256))
+
+
+def _adversarial_c(dev, rng):
+    """Kernel C against its plain version, bit for bit, in the window
+    cases of kernel B and with tasks outside the tile (dropped), at nf 18
+    and 1; repeat and permuted launches give the same bits.  Returns the
+    number of cases."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.ops import accum as ac
+    from joltqc_tpu_torch.ops import accum_tile as at
+    from joltqc_tpu_torch.ops.eri import tier_dtype
+
+    n = 0
+    for tier in ("f32", "fp64"):
+        T = 8192
+        out = rng.integers(-3, 70, (2, T)).astype(np.int32)
+        cases = _window_cases(rng, T) + (
+            ("tasks outside the tile", out[0], out[1], 64),)
+        for name, lx, ly, W in cases:
+            for nf in (18, 1):
+                Tc = lx.shape[0]
+                v = torch.as_tensor(rng.standard_normal((Tc, nf)) * np.exp(
+                    rng.uniform(-12, 0, (Tc, 1))), dtype=tier_dtype(tier),
+                    device=dev)
+                ix = torch.as_tensor(lx, device=dev)
+                iy = torch.as_tensor(ly, device=dev)
+                e = ac.bound_exponent(float(v.abs().max()) * 1.5)
+                what = f"tile_accumulate {tier} {name} nf {nf}"
+
+                def launch(acc, p):
+                    at.tile_accumulate_chunk(*_permuted(p, v, ix, iy), acc, e)
+
+                _, acc_k, acc_p = _held(
+                    dev, what, tier, e, (W, W, nf, ac.NLIMB), Tc, launch,
+                    lambda acc: at.tile_accumulate_plain(v, ix, iy, acc, e))
+                check(torch.equal(acc_k, acc_p), f"{what}: not bit-identical "
+                      "to the plain version")
+                n += 1
     return n
 
 
@@ -543,12 +613,14 @@ def phase_full(ctx):
     check(mol.nao == 302, f"0029: nao {mol.nao}, want 302")
     mf = RHF(mol, verbose=1)
     eri_k.launches = 0
+    eri_k.generic_launches = 0
     acc_k.launches = 0
     t0 = time.perf_counter()
     e = mf.kernel()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    ctx["launches"] = {"eri": eri_k.launches, "accum_tile": acc_k.launches}
+    ctx["launches"] = {"eri": eri_k.launches, "accum_tile": acc_k.launches,
+                       "eri_generic": eri_k.generic_launches}
     s = mf.scf_summary
     st = mf.jk.plan_stats
     tm = mf.jk.timing
@@ -563,6 +635,8 @@ def phase_full(ctx):
     check(abs(e - E_0029) < 1e-6, f"0029: E {e:.10f} vs {E_0029}")
     check(eri_k.launches > 0 and acc_k.launches > 0, "0029: a kernel was "
           "not launched on the main path")
+    check(eri_k.generic_launches == 0, f"0029: {eri_k.generic_launches} "
+          "ERI launches took the generic route")
     # determinism of the Fock build on the converged density
     dm = mf.dm
     eri_k.launches = acc_k.launches = 0
@@ -611,7 +685,13 @@ def _profile_jk(eng, dm, wall, label):
         return
     for us, key, n in rows[:6]:
         say(f"  profile {label}: {us / 1e3:10.3f} ms  x{n:<5d} {key[:70]}")
-    eri = sum(us for us, key, _ in rows if "eri_kernel" in key)
+    eri_rows = [(us, key, n) for us, key, n in rows
+                if re.search(r"eri_(class_|generic_)?kernel", key)]
+    eri = sum(us for us, _, _ in eri_rows)
+    for us, key, n in eri_rows:
+        m = re.search(r"eri_\w*kernel<[^>]*>", key)
+        say(f"  profile {label} eri: {us / 1e3:10.3f} ms  x{n:<4d} "
+            f"{m.group(0) if m else key[:70]}")
     # kernel B is contract_kernel + accum_tile_kernel; D accum_block_kernel
     acc = [(us, n) for us, key, n in rows if "contract_kernel" in key
            or "accum_tile_kernel" in key or "accum_block_kernel" in key]
@@ -648,9 +728,10 @@ def _fock_bounds(eng):
 
 
 def _eri_flops(ls):
-    """FP operations of csrc/eri.cu per primitive quartet: R recursion,
-    E tables and the ket-then-bra assembly (Boys and pair data left out,
-    so the bound stays a lower bound)."""
+    """FP operations per primitive quartet of kernel A's chain, which the
+    class kernels and the generic kernel of csrc/eri.cuh share: R
+    recursion, E tables and the ket-then-bra assembly (Boys and pair data
+    left out, so the bound stays a lower bound)."""
     from joltqc_tpu_torch.ops.harmonics import cart_components
 
     la, lb, lc, ld = ls
@@ -712,12 +793,15 @@ def _accum_args(eng, entry, s, G, tbls, idx, w, dm):
 
 
 def _check_templates(mf):
-    """Hold every kernel template the plan launches (eri_kernel<float |
-    double, LM = 1 | 2 | 4>, accum_tile_kernel<float | double>) against
-    its plain version, at the main path's shapes: the first chunk of the
-    template's largest entry (real tables, indexed ERI form,
-    component-major G, every stream into the E-space accumulator).
-    Returns the max absolute error of each kernel."""
+    """Hold every ERI class the plan launches (each (tier, l-tuple), the
+    class kernel eri_class_kernel<R, la, lb, lc, ld> where the tuple has
+    one) and both accum_tile_kernel templates against their plain
+    versions, at the main path's shapes: the first chunk of each class's
+    largest entry, and of each (tier, lmax <= 1 | 2 | 4) group's entry
+    with the most ERI elements (real tables, indexed ERI form,
+    component-major G; kernel B on every stream into the E-space
+    accumulator).  Fails if a launch took the generic route.  Returns the
+    max absolute error of each kernel."""
     import torch
     from joltqc_tpu_torch.ops import accum_tile as at
     from joltqc_tpu_torch.ops.eri import eri_chunk, tier_dtype
@@ -725,29 +809,37 @@ def _check_templates(mf):
     from joltqc_tpu_torch.scf.jk_contracted import STREAMS
 
     eng = mf.jk
-    picks = {}
+    by_class, by_lm = {}, {}
     for entry in eng._plan:
+        if not entry["ntasks"]:
+            continue
+        key = (entry["tier"], entry["ls"])
+        if key not in by_class or entry["ntasks"] > by_class[key]["ntasks"]:
+            by_class[key] = entry
         lm = max(entry["ls"])
         key = (entry["tier"], 1 if lm <= 1 else 2 if lm == 2 else 4)
-        if entry["ntasks"] and (key not in picks or entry["ntasks"]
-                                * _nfel(entry) > picks[key]["ntasks"]
-                                * _nfel(picks[key])):
-            picks[key] = entry
+        if key not in by_lm or (entry["ntasks"] * _nfel(entry)
+                                > by_lm[key]["ntasks"] * _nfel(by_lm[key])):
+            by_lm[key] = entry
+    picks = {id(e): e for e in [*by_class.values(), *by_lm.values()]}
+    picks = sorted(picks.values(), key=lambda e: (e["tier"], e["ls"],
+                                                  e["nprims"]))
     dm = eng.layout.dm_to_internal(mf.dm)
     _, E = eng._espace()
     a1, a2 = (torch.zeros((E, E, at.NLIMB), dtype=torch.int64,
                           device=eng.device) for _ in range(2))
     worst = {"eri": 0.0, "accum_tile": 0.0}
-    for (tier, lm), entry in sorted(picks.items()):
-        ls, nprims = entry["ls"], entry["nprims"]
+    g0 = eri_chunk.generic_launches
+    for entry in picks:
+        tier, ls, nprims = entry["tier"], entry["ls"], entry["nprims"]
         tbls, quartet, idx, w = _first_chunk(eng, entry)
         G = eri_chunk(tier, ls, nprims, quartet, 0.0, idx=idx)
         Gp = eri_plain(ls, nprims, _gathered(quartet, idx), 0.0)
         err_a = float((G - Gp).abs().max())
         rel_a = err_a / max(float(Gp.abs().max()), 1e-300)
         check(bool(torch.isfinite(G).all()), f"eri {tier} {ls}: non-finite")
-        check(rel_a < ERI_TOL[tier], f"eri {tier} LM={lm} {ls} at the main "
-              f"path's shapes: rel err {rel_a:.3e}")
+        check(rel_a < ERI_TOL[tier], f"eri {tier} {ls} at the main path's "
+              f"shapes: rel err {rel_a:.3e}")
         dmt = torch.as_tensor(dm, dtype=tier_dtype(tier),
                               device=eng.device).contiguous()
         e = at.bound_exponent(entry["bound"])
@@ -760,12 +852,17 @@ def _check_templates(mf):
                                       - at.limbs_to_f64(a2, e)).abs().max()))
         check(err_b < ACC_TOL[tier] * 2.0 ** e, f"accum_tile {tier} {ls} at "
               f"the main path's shapes: err {err_b:.3e} vs 2^{e}")
-        say(f"  check {tier} LM={lm}: class {ls} nprims {nprims} "
-            f"T={idx[0].shape[0]}: eri rel err {rel_a:.3e} (tol "
-            f"{ERI_TOL[tier]:g}); accum_tile {len(STREAMS)} streams err / "
-            f"2^e {err_b * 2.0 ** -e:.3e} (tol {ACC_TOL[tier]:g})")
+        say(f"  check {tier} class {ls} nprims {nprims} T={idx[0].shape[0]}: "
+            f"eri rel err {rel_a:.3e} (tol {ERI_TOL[tier]:g}); accum_tile "
+            f"{len(STREAMS)} streams err / 2^e {err_b * 2.0 ** -e:.3e} (tol "
+            f"{ACC_TOL[tier]:g})")
         worst["eri"] = max(worst["eri"], err_a)
         worst["accum_tile"] = max(worst["accum_tile"], err_b)
+    check(eri_chunk.generic_launches == g0, "eri: a class of the 0029 plan "
+          "took the generic route")
+    say(f"  check: {len(picks)} entries held ({len(by_class)} (tier, class) "
+        f"pairs, {len(by_lm)} (tier, lmax) groups), none on the generic "
+        "route")
     return worst
 
 
@@ -803,7 +900,7 @@ def _time_kernels(ctx, mf):
     bytes_a = T * (16 + nfab * es)
     bound_a = max(flops_a / PEAK_FLOPS[tier], bytes_a / PEAK_BYTES) * 1e3
     ctx["kern_a"] = dict(
-        name="eri_chunk", route="cuda", source="joltqc_tpu_torch/csrc/eri.cu",
+        name="eri_chunk", route="cuda", source="joltqc_tpu_torch/csrc/eri.cuh",
         replaces="joltqc_tpu/ops/eri_pallas.py:291",
         launches=ctx["launches"]["eri"],
         max_abs_err=worst["eri"], ms=ms_a, plain_ms=plain_a,

@@ -66,9 +66,9 @@
 //    bounded as the whole is: 2^23 contributions of full size per
 //    element before a limb could overflow, as before.
 // Build (nvcc -Xptxas -v, sm_90a): contract_kernel 32 (float) and 36
-// (double) registers; accum_tile_kernel 56 and 62 registers under
-// __launch_bounds__(512, 2) and 98,304 bytes of dynamic shared memory;
-// no spills.
+// (double) registers; accum_tile_kernel<R, false> 56 and 62 registers
+// (<R, true>, kernel C: 48 and 56) under __launch_bounds__(512, 2) and
+// 98,304 bytes of dynamic shared memory; no spills.
 // Measured (PERF.md kernel table; H100 80GB HBM3 at 700 W): 0.086-0.088
 // ms per launch on the largest chunk of the 0029 path (K stream ac and J
 // stream ab), 3.7-3.8x the byte bound (the first version 12.6-13.8x),
@@ -77,21 +77,30 @@
 // The bilinear one-hot MXU matmul of the TPU kernel, and its chunk-size
 // limits, are not carried over.
 //
-// (2) tile_accumulate_kernel, the accumulation alone.
+// (2) kernel C, the accumulation alone: accum_tile_kernel<R, true>,
+// launched by jqc_tile_accumulate_launch.
 // Replaces joltqc_tpu/ops/accum_tile.py (tile_accumulate / _tile_kernel,
 // pl.pallas_call at :176): values (T, nf) that are already contracted go
 // to out[ix[t], iy[t], f] of a dense (Wx, Wy, nf, 3) limb tile; tasks
 // whose ix or iy lies outside the tile are dropped (the one-hot of the
-// TPU kernel matches nothing there).  It keeps the first design of
-// kernel (1), without the contraction and without the shared window:
-// every nonzero limb goes straight to a global atomic.
+// TPU kernel matches nothing there).
 // Plain version: ops/accum_tile.py::tile_accumulate_plain.
-// What bounds it: bytes, then atomic throughput.  It reads 4 or 8 bytes
-// per value and 8 bytes of indices per task and does no arithmetic beyond
-// the limb split; every nonzero limb is one 64-bit atomic.  values is
-// task-major (T, nf) contiguous, so one thread per element in flat order
-// (f fastest along threadIdx.x) reads it fully coalesced, and the nf
-// threads of one task add to 24-byte neighbours of one tile cell.
+// What bounds it: bytes.  It reads 4 or 8 bytes per value and 8 bytes of
+// indices per task and does no arithmetic beyond the limb split.  The
+// first kernel (one thread per element, a global 64-bit atomic per nonzero
+// limb) ran 12x that bound and lost to one index_add_ by 1.8x.
+// Design: kernel B's accumulation pass, the same template with TILE set:
+// a block per f reads values[t * nf + f] in place (strided; the T x nf
+// values fit in L2, which all nf blocks read at once), drops the tasks
+// outside the tile as exact zeros, and adds into the dense tile.  A copy
+// of the values into B's f-major layout in front of the unchanged pass
+// measured slower on the timed stream (PERF.md).  The limb sums are
+// those of the plain version, bit for bit: the same split of the same
+// values, summed as integers.
+// Measured (PERF.md kernel table): 0.075-0.076 ms on the largest chunk's
+// K stream ac (the first kernel 0.083), 10x the byte bound and 1.55x one
+// index_add_: each of the nf blocks pulls every task's 32-byte sector
+// from L2 for one value (nf x T sectors), where B's pass reads V once.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -126,6 +135,7 @@ struct Stream {
   int shift;                // 120 - e
   int T;
   int per_block;            // tasks per block of the accumulation
+  int wx, wy;               // kernel C's tile: (wx, wy, nfxy) limb sums
 };
 
 constexpr int kContractThreads = 256;
@@ -168,10 +178,15 @@ __global__ void __launch_bounds__(kContractThreads)
     if (k < nf) V[(long long)(fb + k) * s.T + t] = v[k];
 }
 
-// the int64 limb sums of output component f of shells (x, y)
+// the int64 limb sums of output component f of shells (x, y): E-space
+// through the maps (kernel B), or the dense (wx, wy, nfxy) tile
+// (kernel C, TILE)
+template <bool TILE>
 __device__ __forceinline__ unsigned long long* tile_target(const Stream& s,
                                                            int f, int x,
                                                            int y) {
+  if constexpr (TILE)
+    return s.acc + (((long long)x * s.wy + y) * s.nfxy + f) * 3;
   const long long row = (long long)s.rmap[x] + s.roff[f];
   const long long col = (long long)s.cmap[y] + s.coff[f];
   return s.acc + (row * s.ncols + col) * 3;
@@ -186,6 +201,7 @@ __device__ __forceinline__ int tile_cell(int x, int y, int x0, int y0) {
 
 // add every nonzero cell of the window at (x0, y0) to global memory, zero
 // it, and wait for the whole block
+template <bool TILE>
 __device__ void flush_tile(unsigned* win, const Stream& s, int f, int x0,
                            int y0) {
   for (int c = threadIdx.x; c < kWinCells; c += blockDim.x) {
@@ -193,7 +209,7 @@ __device__ void flush_tile(unsigned* win, const Stream& s, int f, int x0,
     jqc::window_read(win, kWinCells, c, l);
     if (l[0] | l[1] | l[2]) {
       jqc::atomic_add_limbs(
-          tile_target(s, f, x0 + c / kWin, y0 + c % kWin), l);
+          tile_target<TILE>(s, f, x0 + c / kWin, y0 + c % kWin), l);
       jqc::window_clear(win, kWinCells, c);
     }
   }
@@ -209,15 +225,17 @@ __device__ __forceinline__ void task_limbs(const Stream& s, R v, float w,
 }
 
 // The accumulation of V[f, :] for one f (blockIdx.y) and a run of tasks
-// through the shared window.
-template <typename R>
+// through the shared window: kernel B's second pass (V f-major, (nfxy,
+// T), E-space targets) or, TILE, kernel C (V task-major, (T, nfxy), the
+// dense tile; tasks outside it are dropped).
+template <typename R, bool TILE>
 __global__ void __launch_bounds__(kTileThreads, 2)
     accum_tile_kernel(Stream s, const R* __restrict__ V) {
   extern __shared__ unsigned win[];  // (6, kWinCells) words
   const int f = blockIdx.y;
   const int t0 = blockIdx.x * s.per_block;
   const int t1 = min(s.T, t0 + s.per_block);
-  const R* Vf = V + (long long)f * s.T;
+  const R* Vf = V + (TILE ? f : (long long)f * s.T);
   for (int i = threadIdx.x; i < 6 * kWinCells; i += blockDim.x) win[i] = 0;
   int x0 = jqc::floor_to(s.ix[t0], kWin), y0 = jqc::floor_to(s.iy[t0], kWin);
   __syncthreads();
@@ -230,10 +248,17 @@ __global__ void __launch_bounds__(kTileThreads, 2)
 #pragma unroll
     for (int u = 0; u < kTileUnroll; ++u) {
       if (tb + u < t1) {
-        v[u] = Vf[tb + u];
+        if constexpr (TILE)
+          v[u] = Vf[(long long)(tb + u) * s.nfxy];
+        else
+          v[u] = Vf[tb + u];
         w[u] = s.w ? s.w[tb + u] : 1.0f;
         x[u] = s.ix[tb + u];
         y[u] = s.iy[tb + u];
+        // outside kernel C's tile: dropped, as an exact zero
+        if (TILE && ((unsigned)x[u] >= (unsigned)s.wx ||
+                     (unsigned)y[u] >= (unsigned)s.wy))
+          v[u] = R(0);
       }
     }
     // neighbouring tasks of one cell (a bra run on J stream ab) are
@@ -264,7 +289,7 @@ __global__ void __launch_bounds__(kTileThreads, 2)
       jqc::window_atomic_add(win, kWinCells, run_cell, run);
     if (__syncthreads_or(held != 0)) {
       // move the window to the supertile of this step's last task
-      flush_tile(win, s, f, x0, y0);
+      flush_tile<TILE>(win, s, f, x0, y0);
       const int tl = min(base + kTileStep, t1) - 1;
       x0 = jqc::floor_to(s.ix[tl], kWin);
       y0 = jqc::floor_to(s.iy[tl], kWin);
@@ -277,27 +302,27 @@ __global__ void __launch_bounds__(kTileThreads, 2)
         if (c >= 0)
           jqc::window_atomic_add(win, kWinCells, c, l);
         else
-          jqc::atomic_add_limbs(tile_target(s, f, x[u], y[u]), l);
+          jqc::atomic_add_limbs(tile_target<TILE>(s, f, x[u], y[u]), l);
       }
     }
   }
   __syncthreads();
-  flush_tile(win, s, f, x0, y0);
+  flush_tile<TILE>(win, s, f, x0, y0);
 }
 
-template <typename R>
-__global__ void __launch_bounds__(256) tile_accumulate_kernel(
-    const R* __restrict__ values, const int* __restrict__ ix,
-    const int* __restrict__ iy, unsigned long long* acc, long long n, int nf,
-    int Wx, int Wy, int shift) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long t = i / nf;
-  const int f = (int)(i - t * nf);
-  const int x = ix[t], y = iy[t];
-  if (x < 0 || x >= Wx || y < 0 || y >= Wy) return;
-  jqc::add_limbs(acc + (((long long)x * Wy + y) * nf + f) * 3,
-                 (double)values[i], shift);
+// one wave of accum_tile_kernel<R, TILE> over the nfxy components
+template <typename R, bool TILE>
+int launch_accum(Stream& s, const R* V, cudaStream_t st) {
+  const void* kern = (const void*)accum_tile_kernel<R, TILE>;
+  const size_t smem = jqc::kWindowBytes;
+  long long per_block, nx;
+  cudaError_t err = jqc::plan_blocks(kern, kTileThreads, smem, s.T, s.nfxy,
+                                     &per_block, &nx);
+  if (err != cudaSuccess) return (int)err;
+  s.per_block = (int)per_block;
+  const dim3 grid((unsigned)nx, s.nfxy);
+  accum_tile_kernel<R, TILE><<<grid, kTileThreads, smem, st>>>(s, V);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -338,30 +363,17 @@ extern "C" int jqc_accum_tile_launch(int dtype, void* const* p,
   s.fac = fac;
   if (s.T <= 0 || s.nfxy <= 0) return 0;
   if (s.nfxy > 65535) return (int)cudaErrorInvalidValue;
-  const void* kern = dtype == 0 ? (const void*)accum_tile_kernel<float>
-                                : (const void*)accum_tile_kernel<double>;
-  const size_t smem = jqc::kWindowBytes;
-  long long per_block, nx;
-  cudaError_t err = jqc::plan_blocks(kern, kTileThreads, smem, s.T, s.nfxy,
-                                     &per_block, &nx);
-  if (err != cudaSuccess) return (int)err;
-  s.per_block = (int)per_block;
   const dim3 gc((s.T + kContractThreads - 1) / kContractThreads,
                 (s.nfxy + kContractF - 1) / kContractF);
-  const dim3 grid((unsigned)nx, s.nfxy);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     contract_kernel<float><<<gc, kContractThreads, 0, st>>>(
         s, static_cast<float*>(V));
-    accum_tile_kernel<float><<<grid, kTileThreads, smem, st>>>(
-        s, static_cast<const float*>(V));
-  } else {
-    contract_kernel<double><<<gc, kContractThreads, 0, st>>>(
-        s, static_cast<double*>(V));
-    accum_tile_kernel<double><<<grid, kTileThreads, smem, st>>>(
-        s, static_cast<const double*>(V));
+    return launch_accum<float, false>(s, static_cast<const float*>(V), st);
   }
-  return (int)cudaGetLastError();
+  contract_kernel<double><<<gc, kContractThreads, 0, st>>>(
+      s, static_cast<double*>(V));
+  return launch_accum<double, false>(s, static_cast<const double*>(V), st);
 }
 
 // values (T, nf) contiguous in dtype (0 = float32, 1 = float64); ix, iy
@@ -372,16 +384,21 @@ extern "C" int jqc_tile_accumulate_launch(int dtype, const void* values,
                                           int Wx, int Wy, int shift,
                                           void* stream) {
   if (T <= 0 || nf <= 0) return 0;
-  const long long n = T * nf;
-  const long long nblk = (n + 255) / 256;
-  if (nblk > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if (T > 0x7fffffffLL || nf > 65535) return (int)cudaErrorInvalidValue;
+  Stream s = {};
+  s.nfxy = nf;
+  s.ix = ix;
+  s.iy = iy;
+  s.acc = static_cast<unsigned long long*>(acc);
+  s.shift = shift;
+  s.T = (int)T;
+  s.fac = 1.0;
+  s.wx = Wx;
+  s.wy = Wy;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned long long* a = static_cast<unsigned long long*>(acc);
-  if (dtype == 0)
-    tile_accumulate_kernel<float><<<(unsigned)nblk, 256, 0, st>>>(
-        static_cast<const float*>(values), ix, iy, a, n, nf, Wx, Wy, shift);
-  else
-    tile_accumulate_kernel<double><<<(unsigned)nblk, 256, 0, st>>>(
-        static_cast<const double*>(values), ix, iy, a, n, nf, Wx, Wy, shift);
-  return (int)cudaGetLastError();
+  return dtype == 0
+             ? launch_accum<float, true>(s, static_cast<const float*>(values),
+                                         st)
+             : launch_accum<double, true>(
+                   s, static_cast<const double*>(values), st);
 }

@@ -1,13 +1,16 @@
 """Device selection and the build of the hand-written CUDA kernels.
 
 Every kernel source under ``joltqc_tpu_torch/csrc/`` is compiled by
-``nvcc`` for ``sm_90a`` into its own shared library with a plain C
-interface (no PyTorch headers), loaded with ctypes at first use.  The
-libraries go into ``joltqc_tpu_torch/_build/kernels/`` (listed in
-``.gitignore``), named by a hash of the source and of the shared headers
-(``csrc/*.cuh``), so a checkout builds everything it runs from its own
-sources.  ``build_all`` starts one nvcc
-per source at once.
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
+(no PyTorch headers), loaded with ctypes: one library per source, and
+``csrc/eri_class.cu`` once per class group of kernel A, with the -D flags
+of ``ops/eri.py::class_libraries``.  The libraries go into
+``joltqc_tpu_torch/_build/kernels/`` (listed in ``.gitignore``), named by
+a hash of the source, its flags and the shared headers (``csrc/*.cuh``),
+so a checkout builds everything it runs from its own sources.
+``build_all`` starts one nvcc per missing library at once and keeps each
+one's wall seconds in ``build_seconds``; the first ``load`` of a missing
+library builds every missing one that way.
 """
 
 from __future__ import annotations
@@ -18,18 +21,20 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build", "kernels")
-SOURCES = ("eri", "accum_tile", "accum_block")
+SOURCES = tuple(sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu")))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _libs: dict = {}
+build_seconds: dict = {}  # library -> wall seconds of its last nvcc
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,28 +57,42 @@ def _nvcc():
     return cand
 
 
+def libraries():
+    """{library: (source, extra nvcc flags)}: csrc/<name>.cu as library
+    <name>, and csrc/eri_class.cu as each library of
+    ``ops/eri.py::class_libraries``."""
+    from .eri import class_libraries  # ops/eri.py imports this module
+
+    libs = {name: (name, ()) for name in SOURCES if name != "eri_class"}
+    libs.update((name, ("eri_class", flags))
+                for name, flags in class_libraries().items())
+    return libs
+
+
 def _so_path(name):
-    src = os.path.join(CSRC, f"{name}.cu")
-    h = hashlib.sha256()
+    source, flags = libraries()[name]
+    h = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
-        with open(path, "rb") as f:
-            h.update(f.read())
-    return src, os.path.join(BUILD_DIR,
-                             f"libjqc_{name}_{h.hexdigest()[:16]}.so")
+    for f in [f"{source}.cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return (os.path.join(CSRC, f"{source}.cu"), flags,
+            os.path.join(BUILD_DIR, f"libjqc_{name}_{h.hexdigest()[:16]}.so"))
 
 
-def build_all(names=SOURCES, verbose=False):
-    """Compile every missing library, one nvcc process per source, all
-    started together.  Returns {name: ptxas log}; raises on failure."""
+def build_all(names=None, verbose=False):
+    """Compile every missing library of ``names`` (default: all), one nvcc
+    process per library, all started together.  Returns {name: ptxas
+    log}; raises on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
-    for name in names:
-        src, so = _so_path(name)
+    for name in libraries() if names is None else names:
+        src, flags, so = _so_path(name)
         if os.path.exists(so):
             continue
         tmp = so + f".tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags]
         if verbose:
             cmd.append("-Xptxas=-v")
         cmd += [src, "-o", tmp]
@@ -81,10 +100,20 @@ def build_all(names=SOURCES, verbose=False):
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, so)
     logs = {}
+
+    def wait(name, proc):
+        logs[name] = proc.communicate()[0]
+        build_seconds[name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(name, proc))
+               for name, (proc, _, _) in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed = []
     for name, (proc, tmp, so) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
+        out = logs[name]
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
         else:
@@ -95,7 +124,8 @@ def build_all(names=SOURCES, verbose=False):
 
 
 def load(name: str, declare) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu (built on first use);
+    """The loaded library ``name`` of ``libraries()``; where it is not
+    built yet, every missing library is built at once first.
     ``declare(lib)`` sets argtypes/restype once."""
     lib = _libs.get(name)
     if lib is not None:
@@ -103,9 +133,9 @@ def load(name: str, declare) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            _, so = _so_path(name)
+            _, _, so = _so_path(name)
             if not os.path.exists(so):
-                build_all((name,))
+                build_all()
             lib = ctypes.CDLL(so)
             declare(lib)
             _libs[name] = lib
@@ -122,4 +152,5 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-__all__ = ["resolve_device", "build_all", "load", "check", "BUILD_DIR"]
+__all__ = ["resolve_device", "build_all", "build_seconds", "libraries",
+           "load", "check", "BUILD_DIR"]

@@ -19,7 +19,7 @@ from joltqc_tpu_torch.ops.accum_tile import (
     tile_accumulate, tile_accumulate_chunk, tile_accumulate_plain,
     tile_limbs_to_f64,
 )
-from joltqc_tpu_torch.ops.eri import eri_chunk
+from joltqc_tpu_torch.ops.eri import ERI_CLASSES, eri_chunk
 from joltqc_tpu_torch.ops.md import eri_plain
 
 pytestmark = pytest.mark.gpu
@@ -32,14 +32,9 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("tier,tol", [("f32", 2e-5), ("fp64", 1e-12)])
-@pytest.mark.parametrize("ls,nprims", [
-    ((0, 0, 0, 0), (3, 3, 3, 3)),
-    ((1, 1, 1, 1), (1, 3, 1, 1)),
-    ((2, 2, 2, 2), (1, 1, 1, 1)),
-    ((4, 2, 1, 0), (1, 1, 1, 1)),
-])
-def test_eri_kernel_matches_plain(cuda, tier, tol, ls, nprims):
+def _eri_case(cuda, tier, ls, nprims, omega):
+    """Kernel A and its plain version on one random chunk of 256 tasks:
+    (relative error, launches of the generic route)."""
     dt = torch.float32 if tier == "f32" else torch.float64
     rng = np.random.default_rng(sum(ls))
     q = {}
@@ -48,9 +43,44 @@ def test_eri_kernel_matches_plain(cuda, tier, tol, ls, nprims):
         q[f"exps_{x}"] = rng.uniform(0.3, 3.0, (256, npx))
         q[f"coefs_{x}"] = rng.standard_normal((256, npx))
     q = {k: torch.as_tensor(v, dtype=dt, device=cuda) for k, v in q.items()}
-    got = eri_chunk(tier, ls, nprims, q, 0.0)
-    ref = eri_plain(ls, nprims, q, 0.0)
-    assert float((got - ref).abs().max() / ref.abs().max()) < tol
+    g0 = eri_chunk.generic_launches
+    got = eri_chunk(tier, ls, nprims, q, omega)
+    ref = eri_plain(ls, nprims, q, omega)
+    return (float((got - ref).abs().max() / ref.abs().max()),
+            eri_chunk.generic_launches - g0)
+
+
+# every specialised class at 6-31g*'s primitive counts (1 for d, 3
+# below), the first cases of this test, and omega > 0
+ERI_KERNEL_CASES = (
+    [(ls, tuple(1 if l == 2 else 3 for l in ls), 0.0) for ls in ERI_CLASSES]
+    + [((0, 0, 0, 0), (3, 3, 3, 3), 0.0), ((1, 1, 1, 1), (1, 3, 1, 1), 0.0),
+       ((2, 2, 2, 2), (1, 1, 1, 1), 0.0), ((2, 1, 1, 0), (1, 3, 3, 3), 0.3),
+       ((1, 1, 1, 0), (3, 3, 3, 3), 0.3)])
+
+
+@pytest.mark.parametrize("tier,tol", [("f32", 2e-5), ("fp64", 1e-12)])
+@pytest.mark.parametrize("ls,nprims,omega", ERI_KERNEL_CASES)
+def test_eri_kernel_matches_plain(cuda, tier, tol, ls, nprims, omega):
+    """The class kernels against the plain version; none of these
+    launches takes the generic route."""
+    err, generic = _eri_case(cuda, tier, ls, nprims, omega)
+    assert err < tol
+    assert generic == 0
+
+
+@pytest.mark.parametrize("tier,tol", [("f32", 2e-5), ("fp64", 1e-12)])
+@pytest.mark.parametrize("ls,nprims", [
+    ((0, 1, 0, 0), (3, 1, 3, 3)),  # not canonical: lb > la
+    ((3, 2, 1, 0), (1, 1, 1, 1)),
+    ((4, 2, 1, 0), (1, 1, 1, 1)),
+])
+def test_eri_generic_route_matches_plain(cuda, tier, tol, ls, nprims):
+    """A non-canonical l-tuple and l >= 3 take the generic kernel, and
+    agree with the plain version."""
+    err, generic = _eri_case(cuda, tier, ls, nprims, 0.0)
+    assert err < tol
+    assert generic == 1
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
@@ -76,24 +106,62 @@ def test_accum_kernel_matches_plain_and_is_order_free(cuda, dt):
     assert torch.equal(a, b)
 
 
+def _runs(rng, T, hi, longest):
+    """(T,) int32 runs of one value in [0, hi), lengths 1..longest"""
+    lens = rng.integers(1, longest + 1, T)
+    return np.repeat(rng.integers(0, hi, T), lens)[:T].astype(np.int32)
+
+
+def _window_case(rng, case, W, T):
+    """(lx, ly) of one window case: every task on one target, every
+    target distinct, runs of one target, random order, random order
+    sorted by 64 x 64 window."""
+    if case == "one target":
+        return np.full(T, 5, np.int32), np.full(T, 5, np.int32)
+    if case == "distinct":
+        g = rng.permutation(W * W).astype(np.int32)
+        return g // W, g % W
+    if case == "runs":
+        return _runs(rng, T, W, 100), _runs(rng, T, W, 100)
+    lx, ly = rng.integers(0, W, (2, T)).astype(np.int32)
+    if case.startswith("sorted"):
+        order = np.argsort((lx // 64) * 4 + ly // 64, kind="stable")
+        lx, ly = lx[order], ly[order]
+    return lx, ly
+
+
+# kernel B's shared window (64 x 64 shells) under stress: (case, tile
+# edge W); a 256 x 256 tile spans 16 windows
+B_CASES = [("one target", 64), ("distinct", 64), ("runs", 64),
+           ("random over 16 windows", 256), ("sorted by window", 256)]
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
-def test_tile_accumulate_kernel_matches_plain_and_is_order_free(cuda, dt):
+@pytest.mark.parametrize("case,W", [("tasks outside the tile", 64)] + B_CASES)
+def test_tile_accumulate_kernel_matches_plain_and_is_order_free(cuda, dt,
+                                                                case, W):
+    """Kernel C against its plain version, bit for bit: tasks outside the
+    tile (dropped) and the window cases of kernel B; a permuted launch
+    gives the same bits."""
     rng = np.random.default_rng(4)
-    T, W, nf = 8192, 64, 36
+    T, nf = 8192, 36
+    if case == "tasks outside the tile":
+        ix = rng.integers(0, W, T).astype(np.int32)
+        iy = rng.integers(-1, W + 1, T).astype(np.int32)
+    else:
+        ix, iy = _window_case(rng, case, W, T)
+        T = ix.shape[0]
     v = torch.as_tensor(rng.standard_normal((T, nf))
                         * np.exp(rng.uniform(-12, 0, (T, 1))), dtype=dt,
                         device=cuda)
-    ix = torch.as_tensor(rng.integers(0, W, T), dtype=torch.int32, device=cuda)
-    iy = torch.as_tensor(rng.integers(-1, W + 1, T), dtype=torch.int32,
-                         device=cuda)  # some outside the tile: dropped
+    ix = torch.as_tensor(ix, device=cuda)
+    iy = torch.as_tensor(iy, device=cuda)
     bound = float(v.abs().max()) * 1.5
     n0 = tile_accumulate_chunk.launches
     a, e = tile_accumulate(v, ix, iy, W, W, bound)
     assert tile_accumulate_chunk.launches == n0 + 1
     p = tile_accumulate_plain(v, ix, iy, torch.zeros_like(a), e)
-    tol = 1e-13 if dt == torch.float64 else 1e-6
-    err = (tile_limbs_to_f64(a, e) - tile_limbs_to_f64(p, e)).abs().max()
-    assert float(err) < tol * 2.0 ** e
+    assert torch.equal(a, p)
     perm = torch.randperm(T, device=cuda)
     b, _ = tile_accumulate(v[perm], ix[perm], iy[perm], W, W, bound)
     assert torch.equal(a, b)
@@ -121,18 +189,6 @@ def test_block_accumulate_kernel_matches_plain_and_is_order_free(cuda, dt):
     assert torch.equal(a, b)
 
 
-def _runs(rng, T, hi, longest):
-    """(T,) int32 runs of one value in [0, hi), lengths 1..longest"""
-    lens = rng.integers(1, longest + 1, T)
-    return np.repeat(rng.integers(0, hi, T), lens)[:T].astype(np.int32)
-
-
-# kernel B's shared window (64 x 64 shells) under stress: (case, tile
-# edge W); a 256 x 256 tile spans 16 windows
-B_CASES = [("one target", 64), ("distinct", 64), ("runs", 64),
-           ("random over 16 windows", 256), ("sorted by window", 256)]
-
-
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case,W", B_CASES)
 def test_accum_kernel_window_cases(cuda, dt, case, W):
@@ -142,19 +198,9 @@ def test_accum_kernel_window_cases(cuda, dt, case, W):
     by window; with symmetry weights.  A repeat and a permuted launch give
     the same bits."""
     rng = np.random.default_rng(6)
-    nfxy, nfo, T = 6, 9, 8192
-    if case == "one target":
-        lx = ly = np.full(T, 5, np.int32)
-    elif case == "distinct":
-        g = rng.permutation(W * W).astype(np.int32)
-        lx, ly, T = g // W, g % W, W * W
-    elif case == "runs":
-        lx, ly = _runs(rng, T, W, 100), _runs(rng, T, W, 100)
-    else:
-        lx, ly = rng.integers(0, W, (2, T)).astype(np.int32)
-        if case.startswith("sorted"):
-            order = np.argsort((lx // 64) * 4 + ly // 64, kind="stable")
-            lx, ly = lx[order], ly[order]
+    nfxy, nfo = 6, 9
+    lx, ly = _window_case(rng, case, W, 8192)
+    T = lx.shape[0]
     G = torch.as_tensor(rng.standard_normal((T, nfxy, nfo)) * np.exp(
         rng.uniform(-10, 0, (T, 1, 1))), dtype=dt, device=cuda)
     d = torch.as_tensor(rng.standard_normal((T, nfo)), dtype=dt, device=cuda)
