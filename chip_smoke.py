@@ -40,9 +40,21 @@ Phases, each printed with its result and wall time on its own line:
                 kernels C and D held against their plain versions and
                 timed on chunks of that path; incremental RHF against the
                 direct run;
-  7. a "kernels" JSON line; the last line is the device JSON.
+  7. dft        restricted Kohn-Sham on the card (its Fock builds through
+                kernels A and B): H2O/6-31g lda,vwn, pbe, b3lyp and
+                wb97x-v (VV10 off) against a float64 host oracle SCF
+                (intor_np, numint_np) to 1e-8 Eh; wb97x-v with VV10 on a
+                shared grid and on nlcgrids=True, the VV10 energy against
+                nlc_exc_vxc_np; two waters, pbe, incremental with
+                screening and the float64 tier engaged; 0029 B3LYP/6-31g*
+                with the default grid and cutoffs (the grid built in a
+                worker process meanwhile): convergence, kernels A and B
+                launched, the grid's electron count, Exc and Vxc of the
+                mixed path against a plain float64 evaluation on the
+                card, and the device time of rho, xc and vxc;
+  8. a "kernels" JSON line; the last line is the device JSON.
 Any failed phase makes the script exit nonzero.  Options: --only PHASES
-(comma list, for debugging: build,eri,accum,anchors,full,modes; modes
+(comma list, for debugging: build,eri,accum,anchors,full,modes,dft; modes
 runs the 0029 SCF itself when full is left out).
 """
 
@@ -1286,10 +1298,407 @@ def _time_cd(ctx, mf, eng_b):
         f"{at.tile_accumulate_chunk.launches}")
 
 
+# ------------------------------------------------------------ phase 7
+WATERS = """O 0 0 0.1174; H -0.757 0 -0.4696; H 0.757 0 -0.4696;
+O 8 0 0.1174; H 7.243 0 -0.4696; H 8.757 0 -0.4696"""
+NELEC_0029 = 152
+
+
+def _oracle_rks(mol, xc, grids, eri, conv_tol=1e-10, max_cycle=50):
+    """Dense-float64 RKS on the host: the port's intor_np ERIs (``eri``,
+    by omega) and numint_np on ``grids``, its eval_xc in float64 on the
+    CPU, in the loop of tests/test_dft_oracle_scf.py::oracle_rks (no
+    VV10)."""
+    import numpy as np
+    from scipy.linalg import eigh
+    from joltqc_tpu_torch.dft.xc import rsh_coeff, xc_family
+    from joltqc_tpu_torch.mol import intor_np
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.mol.numint_np import eval_rho_np, eval_vxc_np
+    from joltqc_tpu_torch.scf.diis import DIIS
+
+    layout = BasisLayout(mol)
+    fam = xc_family(xc)
+    omega, alpha, hyb = rsh_coeff(xc)
+    s = intor_np.overlap(mol)
+    h = intor_np.kinetic(mol) + intor_np.nuclear(mol)
+    nocc = mol.nelectron // 2
+    _, c = eigh(h, s)
+    dm = 2.0 * c[:, :nocc] @ c[:, :nocc].T
+    diis = DIIS()
+    e_last = 0.0
+    w = grids.weights
+    for cycle in range(max_cycle):
+        dm_int = layout.dm_to_internal(dm)
+        rho = eval_rho_np(layout, grids.coords, dm_int, fam)
+        exc, wv = _xc_rows(xc, w, rho, "cpu")
+        vxc = layout.mat_to_mol(eval_vxc_np(layout, grids.coords, wv, fam))
+        vj = np.einsum("ijkl,kl->ij", eri[0.0], dm)
+        veff = vxc + vj
+        if hyb > 0 or omega > 0:
+            vk = hyb * np.einsum("ikjl,kl->ij", eri[0.0], dm)
+            if omega > 0 and abs(alpha - hyb) > 1e-12:
+                vk = vk + (alpha - hyb) * np.einsum("ikjl,kl->ij",
+                                                    eri[omega], dm)
+            veff -= 0.5 * vk
+            exc -= 0.25 * float(np.einsum("ij,ij->", dm, vk))
+        e_tot = (float(np.einsum("ij,ij->", dm, h))
+                 + 0.5 * float(np.einsum("ij,ij->", dm, vj)) + exc
+                 + mol.energy_nuc())
+        f = diis.update(s, dm, h + veff)
+        _, c = eigh(f, s)
+        dm = 2.0 * c[:, :nocc] @ c[:, :nocc].T
+        if abs(e_tot - e_last) < conv_tol and cycle > 0:
+            return e_tot
+        e_last = e_tot
+    raise PhaseError(f"oracle RKS {xc}: not converged")
+
+
+def _device_ms(fn, top=0):
+    """(device ms, wall ms, the ``top`` kernels [(ms, calls, name)]) of one
+    call of fn() on the card (torch.profiler); device ms None when the
+    profiler records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    dev = sum(r[0] for r in rows)
+    return (dev if rows else None), wall, rows[:top]
+
+
+def _xc_rows(xc, w, rho, device):
+    """Exc and the potential rows wv of rho rows on a grid of weights w,
+    as RKS.get_veff forms them (no VV10)."""
+    import numpy as np
+    from joltqc_tpu_torch.dft.xc import eval_xc, xc_family
+
+    fam = xc_family(xc)
+    sigma = (rho[1:4] ** 2).sum(axis=0) if fam != "lda" else None
+    tau = rho[4] if fam == "mgga" else None
+    e, vr, vs, vt = eval_xc(xc, rho[0], sigma, tau, device=device)
+    if fam == "lda":
+        return float(np.sum(w * e)), (w * vr)[None, :]
+    rows = [(w * vr)[None, :], 2.0 * (w * vs)[None, :] * rho[1:4]]
+    if fam == "mgga":
+        rows.append((w * vt)[None, :])
+    return float(np.sum(w * e)), np.concatenate(rows)
+
+
+def _plain_fp64_xc(mf, dm_int, chunk=32768):
+    """Exc and V_xc (internal basis) of dm_int on mf's grid by a plain
+    float64 evaluation on the card: every AO of every shell at every
+    point, dense float64 products (independent of the port's numint)."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.ops.harmonics import cart_components
+
+    dev = mf.device
+    lay, fam = mf.layout, mf.family
+    nrow = {"lda": 1, "gga": 4, "mgga": 5}[fam]
+    pts_all = torch.as_tensor(mf.grids.coords, dtype=torch.float64,
+                              device=dev)
+    dm = torch.as_tensor(dm_int, dtype=torch.float64, device=dev)
+    shells = [(lay.ao_loc_int[i], sh.l,
+               torch.as_tensor(sh.coord, dtype=torch.float64, device=dev),
+               torch.as_tensor(sh.exps, dtype=torch.float64, device=dev),
+               torch.as_tensor(sh.coeffs, dtype=torch.float64, device=dev))
+              for i, sh in enumerate(mf.mol.shells)]
+
+    def aos(pts):
+        out = torch.zeros((4, len(pts), lay.nao_int), dtype=torch.float64,
+                          device=dev)
+        for col, l, c, e, k in shells:
+            rel = pts - c
+            ex = torch.exp(-e[None, :] * (rel * rel).sum(1)[:, None])
+            rad, drad = ex @ k, ex @ (-2.0 * e * k)
+            for f, p in enumerate(cart_components(l)):
+                mono = rel[:, 0] ** p[0] * rel[:, 1] ** p[1] * rel[:, 2] ** p[2]
+                out[0, :, col + f] = rad * mono
+                for d in range(3):
+                    g = drad * rel[:, d] * mono
+                    if p[d]:
+                        q = list(p)
+                        q[d] -= 1
+                        g = g + rad * p[d] * (rel[:, 0] ** q[0]
+                                              * rel[:, 1] ** q[1]
+                                              * rel[:, 2] ** q[2])
+                    out[1 + d, :, col + f] = g
+        return out
+
+    rho = torch.zeros((nrow, len(pts_all)), dtype=torch.float64, device=dev)
+    for p0 in range(0, len(pts_all), chunk):
+        a = aos(pts_all[p0:p0 + chunk])
+        t = a[0] @ dm
+        r = [(t * a[0]).sum(1)]
+        if fam != "lda":
+            r += [2.0 * (t * a[1 + d]).sum(1) for d in range(3)]
+        if fam == "mgga":
+            r.append(0.5 * sum(((a[1 + d] @ dm) * a[1 + d]).sum(1)
+                               for d in range(3)))
+        rho[:, p0:p0 + chunk] = torch.stack(r)
+    exc, wv = _xc_rows(mf.xc, mf.grids.weights, rho.cpu().numpy(), dev)
+    wv = torch.as_tensor(wv, dtype=torch.float64, device=dev)
+    half = torch.zeros((lay.nao_int,) * 2, dtype=torch.float64, device=dev)
+    for p0 in range(0, len(pts_all), chunk):
+        a = aos(pts_all[p0:p0 + chunk])
+        w = wv[:, p0:p0 + chunk]
+        mid = a[0] * (0.5 * w[0])[:, None]
+        if fam != "lda":
+            for d in range(3):
+                mid = mid + a[1 + d] * w[1 + d][:, None]
+        half += a[0].T @ mid
+        if fam == "mgga":
+            for d in range(3):
+                half += a[1 + d].T @ (a[1 + d] * (0.25 * w[4])[:, None])
+    return exc, (half + half.T).cpu().numpy(), rho.cpu().numpy()
+
+
+def _dft_h2o(eri_h2o, xcs):
+    """(1) H2O/6-31g RKS, VV10 off, against the host oracle, 1e-8 Eh."""
+    from joltqc_tpu_torch.dft import Grids
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.scf import RKS
+
+    mol = Molecule.from_atom_string(H2O, basis="6-31g")
+    grids = Grids(mol, n_rad=50, n_theta=12).build()
+    out = []
+    for xc in xcs:
+        e_ref = _oracle_rks(mol, xc, grids, eri_h2o)
+        mf = RKS(mol, xc=xc, grids=grids, nlc=False, conv_tol=1e-10)
+        e = mf.kernel()
+        check(mf.converged, f"H2O/6-31g {xc}: not converged")
+        check(abs(e - e_ref) < 1e-8, f"H2O/6-31g {xc}: E {e:.10f} vs oracle "
+              f"{e_ref:.10f} (|dE| {abs(e - e_ref):.2e})")
+        out.append(f"{xc} |dE|={abs(e - e_ref):.1e}")
+    say("  dft (1) H2O/6-31g vs the float64 oracle (tol 1e-8): "
+        + ", ".join(out))
+
+
+def _dft_vv10():
+    """(2) wb97x-v with VV10 on a shared grid and on nlcgrids=True; the
+    VV10 energy at each converged density against nlc_exc_vxc_np."""
+    from joltqc_tpu_torch.dft import Grids
+    from joltqc_tpu_torch.dft.vv10 import nlc_exc_vxc, nlc_exc_vxc_np
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.mol.numint_np import eval_rho_np
+    from joltqc_tpu_torch.scf import RKS
+
+    mol = Molecule.from_atom_string(H2O, basis="6-31g")
+    grids = Grids(mol, n_rad=40, n_ang=110).build()
+    e_off = RKS(mol, xc="wb97x-v", grids=grids, nlc=False,
+                conv_tol=1e-9).kernel()
+    out = []
+    for label, kw in (("shared", {}), ("nlcgrids", {"nlcgrids": True})):
+        mf = RKS(mol, xc="wb97x-v", grids=grids, conv_tol=1e-9, **kw)
+        e = mf.kernel()
+        check(mf.converged, f"wb97x-v VV10 {label}: not converged")
+        g = mf.nlcgrids or mf.grids
+        rho = eval_rho_np(mf.layout, g.coords,
+                          mf.layout.dm_to_internal(mf.dm), "gga")
+        sigma = (rho[1:4] ** 2).sum(0)
+        b, C = mf.nlc
+        e_nlc, _, _ = nlc_exc_vxc(g.coords, g.weights, rho[0], sigma, b, C,
+                                  device=mf.device)
+        e_np = nlc_exc_vxc_np(g.coords, g.weights, rho[0], sigma, b, C)
+        rel = abs(e_nlc - e_np) / abs(e_np)
+        check(rel < 1e-5, f"wb97x-v VV10 {label}: E_nlc {e_nlc:.10f} vs "
+              f"numpy {e_np:.10f} (rel {rel:.2e})")
+        check(abs(e - e_off) > 1e-4, f"wb97x-v VV10 {label}: no VV10 shift")
+        out.append(f"{label} ({g.size} points): E={e:.10f} "
+                   f"E-E(nlc off)={e - e_off:.6f} E_nlc rel err {rel:.1e}")
+    say("  dft (2) H2O/6-31g wb97x-v with VV10 (tol rel 1e-5): "
+        + "; ".join(out))
+
+
+def _dft_waters(eri_w):
+    """(3) two waters, pbe, incremental: screening engaged, mixed tier
+    on, E against the oracle to 1e-8, fewer block evaluations."""
+    from joltqc_tpu_torch.dft import Grids
+    from joltqc_tpu_torch.dft.numint import NumInt
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.scf import RKS
+
+    mol = Molecule.from_atom_string(WATERS, basis="6-31g")
+    grids = Grids(mol, n_rad=40, n_theta=10, block=256).build()
+    e_ref = _oracle_rks(mol, "pbe", grids, eri_w)
+    mf = RKS(mol, xc="pbe", grids=grids, conv_tol=1e-10, max_cycle=40,
+             incremental=True)
+    mf.ni = NumInt(mf.layout, block=256)
+    mf.screen_thresh = 1e-12
+    e = mf.kernel()
+    scr = mf._screening()
+    ncyc = mf.scf_summary["cycles"]
+    nblk = len(mf._block_bounds())
+    check(mf.converged, "two waters: not converged")
+    check(scr is not None, "two waters: screening did not engage")
+    check(mf.dft_cutoff_fp64 is not None, "two waters: mixed tier off")
+    check(abs(e - e_ref) < 1e-8, f"two waters: E {e:.10f} vs oracle "
+          f"{e_ref:.10f}")
+    check(mf.dft_block_evals < 2 * ncyc * nblk, f"two waters: "
+          f"{mf.dft_block_evals} block evaluations, not < 2 x {ncyc} x {nblk}")
+    say(f"  dft (3) two waters pbe incremental: E={e:.10f} |dE vs oracle|="
+        f"{abs(e - e_ref):.1e} (tol 1e-8), fill {scr.fill_fraction:.3f}, "
+        f"block evals {mf.dft_block_evals} < 2 x {ncyc} cycles x {nblk}")
+
+
+def _dft_0029(ctx, grids):
+    """(4) 0029 B3LYP/6-31g* at full width with the default grid and
+    cutoffs: convergence, kernels A and B launched, the grid's electron
+    count, and Exc/Vxc of the mixed path against a plain float64
+    evaluation at the converged density."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.dft.mixed import heavy_shell_pairs
+    from joltqc_tpu_torch.dft.screening import GridScreening
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.ops.accum_tile import accum_tile_chunk as acc_k
+    from joltqc_tpu_torch.ops.eri import eri_chunk as eri_k
+    from joltqc_tpu_torch.scf import RKS
+
+    mol = Molecule.from_xyz_file(XYZ_0029, basis="6-31g*")
+    check(mol.nao == 302, f"0029: nao {mol.nao}, want 302")
+    mf = RKS(mol, xc="b3lyp", grids=grids, conv_tol=1e-9, verbose=1)
+    eri_k.launches = acc_k.launches = 0
+    t0 = time.perf_counter()
+    e = mf.kernel()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"eri": eri_k.launches, "accum_tile": acc_k.launches}
+    ctx["launches_dft"] = launches
+    s = mf.scf_summary
+    scr = mf._screening()
+    fill = GridScreening(mf.ni, grids, mf.screen_thresh).fill_fraction
+    dm_int = mf.layout.dm_to_internal(mf.dm)
+    D = mf.layout.dm_cond(dm_int)
+    n_rho = len(heavy_shell_pairs(mf.layout, np.log(np.maximum(D, 1e-300)),
+                                  mf.dft_cutoff_fp64)[0])
+    rho_m = mf._rho_eval(dm_int, mf.family)
+    exc_m, wv = _xc_rows(mf.xc, grids.weights, rho_m, mf.device)
+    wlog = np.full((mf.layout.nbas,) * 2, np.log(np.sum(np.abs(wv)) + 1e-300))
+    n_vxc = len(heavy_shell_pairs(mf.layout, wlog, mf.dft_cutoff_fp64)[0])
+    npairs = mf.layout.nbas * (mf.layout.nbas + 1) // 2
+    tm = mf.jk.timing
+    say(f"  dft (4) 0029 B3LYP/6-31g*: E={e:.10f} cycles={s['cycles']} "
+        f"converged={mf.converged} scf_wall_s={wall:.2f} plan_build_s="
+        f"{tm.get('plan_build_s', 0.0):.2f} plan_builds="
+        f"{tm.get('plan_builds', 0)} get_jk_s={mf.veff_time['jk']:.2f} "
+        f"dft_layer_s={mf.veff_time['dft']:.2f} int1e_s={s['int1e_time']:.2f} "
+        f"grid_points={grids.size} padded={len(grids.coords)} blocks="
+        f"{len(grids.coords) // mf.ni.block} screening="
+        f"{'on' if scr is not None else 'off'} (fill {fill:.4f}, engages "
+        f"below 0.6) heavy shell pairs rho {n_rho} vxc {n_vxc} of {npairs} "
+        f"nelec_grid={mf._nelec_grid:.8f} launches={launches}")
+    check(mf.converged, "0029 B3LYP: SCF not converged")
+    check(launches["eri"] > 0 and launches["accum_tile"] > 0,
+          "0029 B3LYP: kernel A or B not launched on the RKS path")
+    vxc_m = mf._vxc_eval(wv, mf.family)
+    exc_p, vxc_p, rho_p = _plain_fp64_xc(mf, dm_int)
+    d_exc = abs(exc_m - exc_p)
+    d_vxc = float(np.abs(vxc_m - vxc_p).max())
+    say(f"  dft (4) mixed path vs plain float64 on the card, converged "
+        f"density: Exc {exc_m:.10f} vs {exc_p:.10f} |dExc|={d_exc:.2e} (tol "
+        f"1e-7), max|dVxc|={d_vxc:.2e} (max|Vxc| "
+        f"{float(np.abs(vxc_p).max()):.4g})")
+    check(np.isfinite(exc_m) and d_exc < 1e-7,
+          f"0029 B3LYP: |dExc| {d_exc:.2e} vs plain float64")
+    # electrons: of the density (tr DS), and on the grid by the mixed path
+    # and by the plain float64 evaluation; the grid's own quadrature error
+    # is |n_fp64 - tr DS|, the port's numerics |n_mixed - n_fp64|
+    w = grids.weights
+    n_dm = float(np.einsum("ij,ji->", mf.dm, mf.get_ovlp()))
+    n_mixed = float(np.sum(w * rho_m[0]))
+    n_fp64 = float(np.sum(w * rho_p[0]))
+    say(f"  dft (4) electrons at the converged density: tr(DS) {n_dm:.10f}; "
+        f"on the grid: mixed path {n_mixed:.10f}, plain float64 "
+        f"{n_fp64:.10f}; |n_mixed - n_fp64| {abs(n_mixed - n_fp64):.2e} (tol "
+        f"1e-7); grid quadrature |n_fp64 - {NELEC_0029}| "
+        f"{abs(n_fp64 - NELEC_0029):.3e} (1e-4 not met above it)")
+    check(abs(n_dm - NELEC_0029) < 1e-8,
+          f"0029 B3LYP: tr(DS) {n_dm:.10f} vs {NELEC_0029}")
+    check(abs(n_mixed - n_fp64) < 1e-7,
+          f"0029 B3LYP: grid electrons {n_mixed:.10f} vs plain float64 "
+          f"{n_fp64:.10f}")
+
+    # device time of one get_veff's DFT pieces on the converged density
+    # (the profiler's first use in a process pays its own start-up: warm)
+    fam = mf.family
+    _device_ms(lambda: mf._rho_eval(dm_int, fam))
+    prof = {"rho": _device_ms(lambda: mf._rho_eval(dm_int, fam), top=4),
+            "xc": _device_ms(lambda: _xc_rows(mf.xc, grids.weights, rho_m,
+                                               mf.device), top=2),
+            "vxc": _device_ms(lambda: mf._vxc_eval(wv, fam), top=4),
+            "get_veff with J/K": _device_ms(lambda: mf.get_veff(mf.dm))}
+    for name, (dev_ms, wall_ms, top) in prof.items():
+        say(f"  dft (4) profile {name} on the converged density: "
+            + (f"device {dev_ms:.3f} ms" if dev_ms is not None
+               else "device not measured") + f", wall {wall_ms:.3f} ms")
+        for ms, n, key in top:
+            say(f"  dft (4) profile {name}: {ms:10.3f} ms x{n:<5d} {key[:70]}")
+    return e, s["cycles"], wall
+
+
+def _grid_0029():
+    """The default grid of 0029 (host numpy, about a minute and a half):
+    built in a worker process while the smaller runs go on."""
+    sys.path.insert(0, HERE)
+    from joltqc_tpu_torch.dft import Grids
+    from joltqc_tpu_torch.mol import Molecule
+
+    t0 = time.perf_counter()
+    grids = Grids(Molecule.from_xyz_file(XYZ_0029, basis="6-31g*")).build()
+    return grids, time.perf_counter() - t0
+
+
+def _eri_by_omega(mol, xcs):
+    """Dense ERIs of intor_np for omega 0 and each range separation."""
+    from joltqc_tpu_torch.dft.xc import rsh_coeff
+    from joltqc_tpu_torch.mol import intor_np
+
+    omegas = {0.0} | {rsh_coeff(xc)[0] for xc in xcs}
+    return {om: intor_np.eri(mol, omega=om) for om in sorted(omegas)}
+
+
+def phase_dft(ctx):
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from joltqc_tpu_torch.mol import Molecule
+
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        grid = pool.submit(_grid_0029)
+        xcs = ("lda,vwn", "pbe", "b3lyp", "wb97x-v")
+        _dft_h2o(_eri_by_omega(Molecule.from_atom_string(H2O, basis="6-31g"),
+                               xcs), xcs)
+        _dft_vv10()
+        _dft_waters(_eri_by_omega(
+            Molecule.from_atom_string(WATERS, basis="6-31g"), ("pbe",)))
+        grids, grid_s = grid.result()
+    say(f"  dft 0029 default grid built in {grid_s:.1f} s (host numpy, in "
+        "a worker process during (1)-(3))")
+    e, ncyc, wall = _dft_0029(ctx, grids)
+    return (f"0029 B3LYP/6-31g* E={e:.10f} in {ncyc} cycles, SCF wall "
+            f"{wall:.1f} s; RKS path launches {ctx['launches_dft']}")
+
+
 # --------------------------------------------------------------- main
 PHASES = (("build", phase_build), ("eri", phase_eri), ("accum", phase_accum),
           ("anchors", phase_anchors), ("full", phase_full),
-          ("modes", phase_modes))
+          ("modes", phase_modes), ("dft", phase_dft))
 
 
 def main(argv=None):

@@ -6,12 +6,13 @@ neither JAX nor ``joltqc_tpu``.  Host-side numpy modules are copied
 (mol/, scf/tasks.py, scf/diis.py, native/), tensor code is PyTorch, and
 the four TPU kernels of the reference are hand-written CUDA for sm_90a
 (csrc/eri.cu, the two kernels of csrc/accum_tile.cu, csrc/accum_block.cu).
-Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``, which runs the plain PyTorch
-versions of the kernels.
+RKS DFT (dft/, scf/rks.py) runs its grid work as PyTorch products with a
+float64 tier; its Fock builds go through the same kernels.  Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``, which runs the
+plain PyTorch versions of the kernels.
 """
 
 __version__ = "0.1.0"
 
 from .mol import Molecule  # noqa: F401,E402
-from .scf import RHF, JKEngine  # noqa: F401,E402
+from .scf import RHF, RKS, JKEngine  # noqa: F401,E402

@@ -1,6 +1,7 @@
 """BasisLayout: molecule -> internal cartesian AO space + AO transforms.
 
-Copy of ``joltqc_tpu/mol/layout.py`` (the parts the RHF path uses).
+Copy of ``joltqc_tpu/mol/layout.py`` (the parts the RHF and RKS paths
+use; ``pair_block`` is not needed).
 Reference counterpart: JoltQC jqc/pyscf/basis.py (BasisLayout: dm
 transforms).  The internal AO basis is cartesian in molecular shell
 order; a single rectangular transform matrix P (internal x mol) folds
@@ -27,6 +28,7 @@ class BasisLayout:
         self.nao_int = int(self.ao_loc_int[-1])
         self.nao_mol = mol.nao
         self._build_transform()
+        self._build_groups()
 
     # ------------------------------------------------------------ transform
     def _build_transform(self):
@@ -50,6 +52,14 @@ class BasisLayout:
         """Operator matrix internal -> mol AO (host f64)."""
         return self.P.T @ mat @ self.P
 
+    # ------------------------------------------------------------ groups
+    def _build_groups(self):
+        groups: dict[int, list[int]] = {}
+        for i, sh in enumerate(self.mol.shells):
+            groups.setdefault(sh.l, []).append(i)
+        self.groups = {l: np.array(idx, np.int32) for l, idx in sorted(groups.items())}
+        self.ls = sorted(self.groups)
+
     # ------------------------------------------------------------ dm_cond
     def dm_cond(self, dm_int: np.ndarray) -> np.ndarray:
         """Shell-block max |dm| pooling (nbas, nbas), vectorized host-side.
@@ -60,6 +70,18 @@ class BasisLayout:
         starts = self.ao_loc_int[:-1]
         rows = np.maximum.reduceat(ad, starts, axis=0)
         return np.maximum.reduceat(rows, starts, axis=1)
+
+    def dm_cond_l2(self, dm_int: np.ndarray) -> np.ndarray:
+        """Shell-block L2-norm pooling (nbas, nbas).
+
+        Reference: l2_block_pooling
+        (JoltQC jqc/backend/linalg_helper.py:214 -- unused by the
+        reference main path; kept for inventory/screening-research
+        parity).  sqrt(sum_{block} dm^2) per shell block."""
+        sq = np.square(np.asarray(dm_int, np.float64))
+        starts = self.ao_loc_int[:-1]
+        rows = np.add.reduceat(sq, starts, axis=0)
+        return np.sqrt(np.add.reduceat(rows, starts, axis=1))
 
 
 __all__ = ["BasisLayout"]

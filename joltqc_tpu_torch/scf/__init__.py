@@ -1,2 +1,3 @@
 from .hf import RHF  # noqa: F401
 from .jk_contracted import JKEngine  # noqa: F401
+from .rks import RKS  # noqa: F401
