@@ -52,10 +52,27 @@ Phases, each printed with its result and wall time on its own line:
                 launched, the grid's electron count, Exc and Vxc of the
                 mixed path against a plain float64 evaluation on the
                 card, and the device time of rho, xc and vxc;
-  8. a "kernels" JSON line; the last line is the device JSON.
+  8. ecp        effective core potentials on the card (scf/ecp.py, no
+                fallback): (1) H2, O-H and Na2 (the Na 10-core ECP, every
+                channel ul + S..G): build, gradient, build_ip and both
+                build_ipip against the same engine on the CPU (1e-12
+                of max(1, max |value|)),
+                build against the port's ecp_np (5e-11); (2) NaH/sto-3g
+                with the shipped jqc-model against the JAX package's
+                anchor (5e-8); (3) Na2 RHF and NaH RKS pbe against host
+                float64 oracle SCFs (1e-7, 1e-8); (4) 0029-Na+ (0029
+                with Na+ 2.25 A beyond O15, charge +1, 6-31g*, Na on the
+                generated basis, 351 AO) RHF to convergence with kernels
+                A and B counted (none of A's on the generic route), the
+                ECP matrix against ecp_np on a seeded sample of >= 300
+                shell-pair blocks (5e-11), the ECP gradient's z on Na and
+                O15 against central differences (1e-6), and the ECP
+                build's and gradient's wall, device time and launches;
+                the host oracles run in worker processes meanwhile;
+  9. a "kernels" JSON line; the last line is the device JSON.
 Any failed phase makes the script exit nonzero.  Options: --only PHASES
-(comma list, for debugging: build,eri,accum,anchors,full,modes,dft; modes
-runs the 0029 SCF itself when full is left out).
+(comma list, for debugging: build,eri,accum,anchors,full,modes,dft,ecp;
+modes runs the 0029 SCF itself when full is left out).
 """
 
 from __future__ import annotations
@@ -1304,11 +1321,12 @@ O 8 0 0.1174; H 7.243 0 -0.4696; H 8.757 0 -0.4696"""
 NELEC_0029 = 152
 
 
-def _oracle_rks(mol, xc, grids, eri, conv_tol=1e-10, max_cycle=50):
+def _oracle_rks(mol, xc, grids, eri, conv_tol=1e-10, max_cycle=50,
+                h_ecp=None):
     """Dense-float64 RKS on the host: the port's intor_np ERIs (``eri``,
     by omega) and numint_np on ``grids``, its eval_xc in float64 on the
     CPU, in the loop of tests/test_dft_oracle_scf.py::oracle_rks (no
-    VV10)."""
+    VV10); ``h_ecp``, an ECP matrix, is added to hcore."""
     import numpy as np
     from scipy.linalg import eigh
     from joltqc_tpu_torch.dft.xc import rsh_coeff, xc_family
@@ -1322,6 +1340,8 @@ def _oracle_rks(mol, xc, grids, eri, conv_tol=1e-10, max_cycle=50):
     omega, alpha, hyb = rsh_coeff(xc)
     s = intor_np.overlap(mol)
     h = intor_np.kinetic(mol) + intor_np.nuclear(mol)
+    if h_ecp is not None:
+        h = h + h_ecp
     nocc = mol.nelectron // 2
     _, c = eigh(h, s)
     dm = 2.0 * c[:, :nocc] @ c[:, :nocc].T
@@ -1695,10 +1715,476 @@ def phase_dft(ctx):
             f"{wall:.1f} s; RKS path launches {ctx['launches_dft']}")
 
 
+# ------------------------------------------------------------ phase 8
+# ECP data of the JAX package's tests/test_ecp.py: a model O ECP, an
+# s-only H ECP, and the Na 10-core ECP of the reference's own suite
+# (public GPU4PySCF test data; channels ul + S..G) with a Na valence basis
+ECP_O = """ECP
+O nelec 2
+O ul
+2 1.24 -2.30
+1 4.50 1.10
+0 3.00 2.00
+O S
+2 5.35 10.2
+2 1.04 2.29
+O P
+2 2.45 5.10
+END"""
+ECP_H = """ECP
+H nelec 0
+H ul
+2 2.0 -1.5
+H S
+2 3.5 0.8
+END"""
+ECP_NA = """ECP
+Na nelec 10
+Na ul
+2       1.0                   0.5
+Na S
+2      13.652203             732.2692
+2       6.826101              26.484721
+Na P
+2      10.279868             299.489474
+2       5.139934              26.466234
+Na D
+2       7.349859             124.457595
+2       3.674929              14.035995
+Na F
+2       3.034072              21.531031
+Na G
+2       4.808857             -21.607597
+END"""
+NA_BASIS = """BASIS "ao basis" PRINT
+Na    S
+      1.8        0.4
+      0.6        0.7
+Na    S
+      0.25       1.0
+Na    P
+      0.9        1.0
+Na    D
+      0.5        1.0
+END"""
+# NaH/sto-3g with the shipped model ECP: the JAX package's anchor
+# (tests/test_ecp_data.py, an all-numpy RHF)
+E_NAH_MODEL = -0.7088327233
+# 0029-Na+: Na 2.25 A beyond O15 on the C14=O15 axis (0-based atoms)
+NA_0029 = "Na 4.1338 -3.1001 1.6996"
+O15 = 15
+ECP_FD_H = 1e-4  # Angstrom
+
+
+def _ecp_mol(case):
+    """The ECP phase's molecules by name, in this process or a worker."""
+    from joltqc_tpu_torch.mol import Molecule
+
+    if case == "h2":
+        return Molecule.from_atom_string("H 0 0 0; H 0 0 1.2", basis="sto-3g",
+                                         ecp=ECP_H)
+    if case == "oh":
+        return Molecule.from_atom_string("O 0 0 0; H 0 0 1.9", basis="sto-3g",
+                                         charge=1, ecp=ECP_O)
+    if case == "na2":
+        path = os.path.join(HERE, "joltqc_tpu_torch", "_build",
+                            "na_valence.dat")
+        if not os.path.exists(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path + f".{os.getpid()}", "w") as f:
+                f.write(NA_BASIS)
+            os.replace(path + f".{os.getpid()}", path)
+        return Molecule.from_atom_string("Na 0.5 0.5 0; Na 0 1.0 1.0",
+                                         basis=path, ecp=ECP_NA)
+    if case == "nah":
+        return Molecule.from_atom_string("Na 0 0 0; H 0 0 1.89",
+                                         basis="sto-3g", ecp="jqc-model")
+    if case == "0029na":
+        return Molecule.from_atom_string(_atoms_0029na(), basis="6-31g*",
+                                         charge=1, ecp=ECP_NA)
+    raise ValueError(case)
+
+
+def _atoms_0029na(shift=None):
+    """0029 with Na+; ``shift`` (atom, dz in Angstrom) moves one atom."""
+    with open(XYZ_0029) as f:
+        lines = f.read().splitlines()
+    rows = [ln.split()[:4] for ln in lines[2:2 + int(lines[0])]]
+    rows.append(NA_0029.split())
+    if shift is not None:
+        ia, dz = shift
+        rows[ia][3] = repr(float(rows[ia][3]) + dz)
+    return "\n".join(" ".join(r) for r in rows)
+
+
+def _w_ecp_matrix(case):
+    """(worker) The port's float64 oracle ECP matrix, molecular basis."""
+    sys.path.insert(0, HERE)
+    from joltqc_tpu_torch.mol.ecp_np import ecp_matrix_np
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+
+    mol = _ecp_mol(case)
+    lay = BasisLayout(mol)
+    return lay.mat_to_mol(ecp_matrix_np(mol, lay))
+
+
+def _w_oracle_rhf(case):
+    """(worker) Dense float64 RHF on the host with the ECP in hcore: the
+    port's intor_np and ecp_np, the loop of tests/test_ecp.py."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+    from scipy.linalg import eigh
+    from joltqc_tpu_torch.mol import intor_np
+    from joltqc_tpu_torch.scf.diis import DIIS
+
+    mol = _ecp_mol(case)
+    s = intor_np.overlap(mol)
+    h = (intor_np.kinetic(mol) + intor_np.nuclear(mol)
+         + _w_ecp_matrix(case))
+    eri = intor_np.eri(mol)
+    nocc = mol.nelectron // 2
+    _, c = eigh(h, s)
+    dm = 2.0 * c[:, :nocc] @ c[:, :nocc].T
+    diis = DIIS()
+    e_last = 0.0
+    for cycle in range(60):
+        vj = np.einsum("ijkl,kl->ij", eri, dm)
+        vk = np.einsum("ikjl,kl->ij", eri, dm)
+        e = float(np.einsum("ij,ij->", dm, h)
+                  + 0.5 * np.einsum("ij,ij->", dm, vj - 0.5 * vk)) \
+            + mol.energy_nuc()
+        _, c = eigh(diis.update(s, dm, h + vj - 0.5 * vk), s)
+        dm = 2.0 * c[:, :nocc] @ c[:, :nocc].T
+        if abs(e - e_last) < 1e-11 and cycle > 0:
+            return e
+        e_last = e
+    raise PhaseError(f"oracle RHF {case}: not converged")
+
+
+def _ecp_grids(mol):
+    from joltqc_tpu_torch.dft import Grids
+
+    return Grids(mol, n_rad=50, n_theta=12).build()
+
+
+def _w_oracle_rks_nah():
+    """(worker) NaH pbe with jqc-model: the host float64 RKS oracle."""
+    sys.path.insert(0, HERE)
+    from joltqc_tpu_torch.mol import intor_np
+
+    mol = _ecp_mol("nah")
+    return _oracle_rks(mol, "pbe", _ecp_grids(mol),
+                       {0.0: intor_np.eri(mol)}, h_ecp=_w_ecp_matrix("nah"))
+
+
+def _w_ecp_blocks(pairs):
+    """(worker) ecp_np's internal cartesian blocks <i|U|j> of 0029-Na+
+    for shell pairs i >= j, summed over the Na channels."""
+    sys.path.insert(0, HERE)
+    from joltqc_tpu_torch.mol.ecp_np import type1_cart_np, type2_cart_np
+
+    mol = _ecp_mol("0029na")
+    na = mol.natm - 1
+    C = mol.coords[na]
+    data = mol.ecp["Na"]
+    out = []
+    for i, j in pairs:
+        si, sj = mol.shells[i], mol.shells[j]
+        blk = 0.0
+        for ch in data.channels:
+            fn = type1_cart_np if ch.l < 0 else type2_cart_np
+            blk = blk + fn(si, sj, C, ch)
+        out.append(blk)
+    return out
+
+
+def _sample_pairs(eng, mol, n=300, seed=29):
+    """A seeded sample of >= n shell pairs (i >= j) that hold ECP tasks:
+    ten (or all) of every (l_i, l_j), forty Na-Na pairs, the rest drawn
+    at random."""
+    import numpy as np
+
+    na = mol.natm - 1
+    pairs = set()
+    for ci, cj, _icen, si, sj in eng._chunks():
+        a = eng.classes[ci].shell_ids[si]
+        b = eng.classes[cj].shell_ids[sj]
+        pairs.update(zip(np.maximum(a, b).tolist(), np.minimum(a, b).tolist()))
+    pairs = sorted(pairs)
+    rng = np.random.default_rng(seed)
+    ls = {p: (mol.shells[p[0]].l, mol.shells[p[1]].l) for p in pairs}
+    nana = [p for p in pairs if mol.shells[p[0]].atom_idx == na
+            and mol.shells[p[1]].atom_idx == na]
+    pick = set()
+    for key in sorted(set(ls.values())):
+        group = [p for p in pairs if ls[p] == key]
+        for k in rng.permutation(len(group))[:10]:
+            pick.add(group[k])
+    for k in rng.permutation(len(nana))[:40]:
+        pick.add(nana[k])
+    rest = [p for p in pairs if p not in pick]
+    for k in rng.permutation(len(rest))[:max(0, n - len(pick))]:
+        pick.add(rest[k])
+    return sorted(pick), sorted(set(ls.values())), nana
+
+
+ECP_METHODS = ("build", "gradient", "build_ip", "ipipv", "ipvip")
+
+
+def _ecp_methods(eng, nao):
+    """The five results of one ECP engine; the gradient on a seeded
+    symmetric density."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    a = rng.uniform(-1, 1, (nao, nao))
+    dm = a + a.T
+    return {"build": eng.build(), "gradient": eng.gradient(dm),
+            "build_ip": eng.build_ip(), "ipipv": eng.build_ipip("ipipv"),
+            "ipvip": eng.build_ipip("ipvip")}
+
+
+def _w_ecp_cpu(case):
+    """(worker) The five results of the same engine on the CPU."""
+    sys.path.insert(0, HERE)
+    import torch
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.scf import ECPEngine
+
+    torch.set_num_threads(1)
+    mol = _ecp_mol(case)
+    return _ecp_methods(ECPEngine(BasisLayout(mol), device="cpu"), mol.nao)
+
+
+def _ecp_engine_checks(case, cpu, oracle):
+    """(1) one case: build, gradient, build_ip and both build_ipip on the
+    card against the same engine on the CPU (``cpu``, from a worker; 1e-12
+    of max(1, max |value|): a float64 ulp of the second derivatives'
+    largest entries, ~1e4 Eh/a0^2 at O-H, is itself above 1e-12), build
+    against the port's ecp_np (``oracle``, 5e-11)."""
+    import numpy as np
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.scf import ECPEngine
+
+    mol = _ecp_mol(case)
+    card = ECPEngine(BasisLayout(mol))
+    check(card.device.type == "cuda", f"ECP {case}: engine on {card.device}")
+    got = _ecp_methods(card, mol.nao)
+    worst = {}
+    for name in ECP_METHODS:
+        ref = cpu[name]
+        check(np.isfinite(got[name]).all() and got[name].shape == ref.shape,
+              f"ECP {case} {name}: shape or NaN")
+        scale = max(1.0, float(np.abs(ref).max()))
+        worst[name] = (float(np.abs(got[name] - ref).max()), scale)
+        check(worst[name][0] < 1e-12 * scale, f"ECP {case} {name}: card vs "
+              f"cpu {worst[name][0]:.3e} (max |value| {scale:.3e})")
+    err = float(np.abs(got["build"] - oracle).max())
+    check(err < 5e-11, f"ECP {case}: build vs ecp_np {err:.3e}")
+    say(f"  ecp (1) {case} ({mol.nao} AO, {card.last_run['tasks']} tasks): "
+        "card vs cpu max |d| (max |value|) " + ", ".join(
+            f"{k} {d:.1e} ({s:.1e})" for k, (d, s) in worst.items())
+        + f" (tol 1e-12 x max(1, max |value|)); build vs ecp_np {err:.1e} "
+        "(tol 5e-11)")
+
+
+def _ecp_timed(fn):
+    """(result, wall s, device ms or None, kernel launches) of fn() on
+    the card: the wall of a synchronised call, then the device time and
+    launch count of a second call from the profiler's raw device events
+    (its key_averages parses 1e5 launches in Python for a minute)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_ns = launches = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            dev_ns += ev.duration_ns()
+            launches += not ev.name().startswith(("Memcpy", "Memset"))
+    return out, wall, (dev_ns / 1e6 if dev_ns else None), launches
+
+
+def _ecp_0029(ctx, parts, pairs, lpairs, nana):
+    """(4) 0029-Na+ RHF/6-31g* with the full-channel Na ECP; ``parts``,
+    the futures of ecp_np's blocks of ``pairs``, in order."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.mol.elements import BOHR
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.ops.accum_tile import accum_tile_chunk as acc_k
+    from joltqc_tpu_torch.ops.eri import eri_chunk as eri_k
+    from joltqc_tpu_torch.scf import ECPEngine, RHF
+
+    t_in = time.perf_counter()
+    mol = _ecp_mol("0029na")
+    check(mol.nao == 351 and mol.nelectron == 152,
+          f"0029-Na+: nao {mol.nao}, nelectron {mol.nelectron}")
+    mf = RHF(mol, cutoff_fp32=1e-13, cutoff_fp64=1e-6)
+    eri_k.launches = eri_k.generic_launches = acc_k.launches = 0
+    t0 = time.perf_counter()
+    e = mf.kernel()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"eri": eri_k.launches, "accum_tile": acc_k.launches,
+                "eri_generic": eri_k.generic_launches}
+    s = mf.scf_summary
+    plan_s = mf.jk.timing.get("plan_build_s", 0.0)
+    say(f"  ecp (4) 0029-Na+ RHF/6-31g*: E={e:.10f} cycles={s['cycles']} "
+        f"converged={mf.converged} scf_wall_s={wall:.2f} plan_build_s="
+        f"{plan_s:.2f} ({100 * plan_s / wall:.0f}% of the wall) int1e+ecp_s="
+        f"{s['int1e_time']:.2f} setup_s={t0 - t_in:.1f} launches={launches}")
+    check(mf.converged and np.isfinite(e), "0029-Na+: SCF not converged")
+    check(eri_k.launches > 0 and acc_k.launches > 0,
+          "0029-Na+: kernel A or B was not launched")
+    check(eri_k.generic_launches == 0, f"0029-Na+: {eri_k.generic_launches} "
+          "ERI launches took the generic route")
+    ctx["e_0029na"] = e
+
+    t_step = time.perf_counter()
+    eng = ECPEngine(mf.layout)
+    cold = time.perf_counter()
+    eng.build()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - cold
+    V, b_wall, b_dev, b_launch = _ecp_timed(eng.build_int)
+    b_run = dict(eng.last_run)
+    dm = mf.dm
+    grad, g_wall, g_dev, g_launch = _ecp_timed(lambda: eng.gradient(dm))
+    g_run = dict(eng.last_run)
+    check(np.isfinite(V).all() and np.isfinite(grad).all(),
+          "0029-Na+: ECP matrix or gradient not finite")
+    for label, w, d, n, run in (("build", b_wall, b_dev, b_launch, b_run),
+                                ("gradient", g_wall, g_dev, g_launch, g_run)):
+        say(f"  ecp (4) ECP {label}: wall {w:.3f} s (first build {cold:.3f} "
+            "s), device " + (f"{d:.1f} ms" if d is not None else
+                             "not measured")
+            + f", {n} kernel launches, {run['chunks']} chunks, "
+            f"{run['tasks']} tasks, {run['evaluations']} chunk evaluations")
+    say(f"  ecp (4) ECP timing with its profiles: "
+        f"{time.perf_counter() - t_step:.1f} s")
+
+    # the matrix on a seeded sample of shell-pair blocks against ecp_np
+    t_step = time.perf_counter()
+    al = mf.layout.ao_loc_int
+    ref = [b for f in parts for b in f.result()]
+    err = max(float(np.abs(V[al[i]:al[i + 1], al[j]:al[j + 1]] - r).max())
+              for (i, j), r in zip(pairs, ref))
+    n_nana = len([p for p in pairs if p in set(nana)])
+    say(f"  ecp (4) ECP matrix vs ecp_np on {len(pairs)} sampled shell-pair "
+        f"blocks ((l_i, l_j) {lpairs}, {n_nana} Na-Na): max |d| {err:.2e} "
+        f"(tol 5e-11; waited {time.perf_counter() - t_step:.1f} s for them)")
+    check(len(pairs) >= 300 and n_nana > 0, "0029-Na+: block sample too small")
+    check(err < 5e-11, f"0029-Na+: ECP blocks vs ecp_np {err:.3e}")
+
+    # z gradient on Na and O15 against central differences of tr(D V_ecp)
+    t_step = time.perf_counter()
+    na = mol.natm - 1
+    out = []
+    for ia in (na, O15):
+        e_pm = []
+        for dz in (ECP_FD_H, -ECP_FD_H):
+            m = Molecule.from_atom_string(_atoms_0029na((ia, dz)),
+                                          basis="6-31g*", charge=1, ecp=ECP_NA)
+            e_pm.append(float(np.sum(dm * ECPEngine(BasisLayout(m)).build())))
+        fd = (e_pm[0] - e_pm[1]) / (2 * ECP_FD_H / BOHR)
+        d = abs(fd - grad[ia, 2])
+        out.append(f"{mol.atom_symbols[ia]}{ia} dE/dz {grad[ia, 2]:.10f} fd "
+                   f"{fd:.10f} |d| {d:.1e}")
+        check(d < 1e-6, f"0029-Na+: ECP gradient z on atom {ia} "
+              f"{grad[ia, 2]:.10f} vs fd {fd:.10f}")
+    say("  ecp (4) ECP gradient vs central differences (h = 1e-4 A, tol "
+        f"1e-6; {time.perf_counter() - t_step:.1f} s): " + "; ".join(out))
+    return e, s["cycles"], wall
+
+
+def _one_thread():
+    """Pool initializer: one BLAS / OpenMP thread per worker (set before
+    the worker imports numpy), so that the workers leave the cores to
+    the process that drives the card."""
+    for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[k] = "1"
+
+
+def phase_ecp(ctx):
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.scf import RHF, RKS, ECPEngine
+
+    # the host oracles and the CPU engine run in worker processes while
+    # the card runs 0029-Na+ first
+    mol_big = _ecp_mol("0029na")
+    pairs, lpairs, nana = _sample_pairs(ECPEngine(BasisLayout(mol_big)),
+                                        mol_big)
+    nwork = max(2, min(6, (os.cpu_count() or 4) - 2))
+    with ProcessPoolExecutor(
+            nwork, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_one_thread) as pool:
+        step = -(-len(pairs) // (2 * nwork))
+        parts = [pool.submit(_w_ecp_blocks, pairs[k:k + step])
+                 for k in range(0, len(pairs), step)]
+        rks_fut = pool.submit(_w_oracle_rks_nah)
+        cases = ("h2", "oh", "na2")
+        cpus = {c: pool.submit(_w_ecp_cpu, c) for c in cases}
+        mats = {c: pool.submit(_w_ecp_matrix, c) for c in cases}
+        rhf_fut = pool.submit(_w_oracle_rhf, "na2")
+
+        t0 = time.perf_counter()
+        e, ncyc, wall = _ecp_0029(ctx, parts, pairs, lpairs, nana)
+        say(f"  ecp (4) done in {time.perf_counter() - t0:.1f} s")
+
+        # (2) the JAX package's NaH anchor with the shipped model ECP
+        t0 = time.perf_counter()
+        mf = RHF(_ecp_mol("nah"), conv_tol=1e-10)
+        e_nah = mf.kernel()
+        check(mf.converged and abs(e_nah - E_NAH_MODEL) < 5e-8,
+              f"NaH jqc-model: E {e_nah:.10f} vs {E_NAH_MODEL}")
+        say(f"  ecp (2) NaH/sto-3g jqc-model RHF E={e_nah:.10f} |dE vs "
+            f"{E_NAH_MODEL}|={abs(e_nah - E_NAH_MODEL):.1e} (tol 5e-8; "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+        t0 = time.perf_counter()
+        for case in cases:
+            _ecp_engine_checks(case, cpus[case].result(),
+                               mats[case].result())
+        say(f"  ecp (1) done in {time.perf_counter() - t0:.1f} s (waiting "
+            "on the workers included)")
+
+        # (3) RHF and RKS with an ECP against host oracle SCFs
+        t0 = time.perf_counter()
+        mf = RHF(_ecp_mol("na2"), conv_tol=1e-11)
+        e_na2 = mf.kernel()
+        e_ref = rhf_fut.result()
+        check(mf.converged and abs(e_na2 - e_ref) < 1e-7,
+              f"Na2 RHF: E {e_na2:.10f} vs oracle {e_ref:.10f}")
+        nah = _ecp_mol("nah")
+        ks = RKS(nah, xc="pbe", grids=_ecp_grids(nah), conv_tol=1e-10)
+        e_ks = ks.kernel()
+        e_ks_ref = rks_fut.result()
+        check(ks.converged and abs(e_ks - e_ks_ref) < 1e-8,
+              f"NaH pbe: E {e_ks:.10f} vs oracle {e_ks_ref:.10f}")
+        say(f"  ecp (3) Na2 RHF E={e_na2:.10f} |dE vs oracle|="
+            f"{abs(e_na2 - e_ref):.1e} (tol 1e-7); NaH jqc-model RKS pbe "
+            f"E={e_ks:.10f} |dE vs oracle|={abs(e_ks - e_ks_ref):.1e} "
+            f"(tol 1e-8; {time.perf_counter() - t0:.1f} s)")
+    return (f"0029-Na+ RHF/6-31g* E={e:.10f} in {ncyc} cycles, SCF wall "
+            f"{wall:.1f} s")
+
+
 # --------------------------------------------------------------- main
 PHASES = (("build", phase_build), ("eri", phase_eri), ("accum", phase_accum),
           ("anchors", phase_anchors), ("full", phase_full),
-          ("modes", phase_modes), ("dft", phase_dft))
+          ("modes", phase_modes), ("dft", phase_dft), ("ecp", phase_ecp))
 
 
 def main(argv=None):

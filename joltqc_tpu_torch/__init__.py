@@ -7,7 +7,11 @@ neither JAX nor ``joltqc_tpu``.  Host-side numpy modules are copied
 the four TPU kernels of the reference are hand-written CUDA for sm_90a
 (csrc/eri.cu, the two kernels of csrc/accum_tile.cu, csrc/accum_block.cu).
 RKS DFT (dft/, scf/rks.py) runs its grid work as PyTorch products with a
-float64 tier; its Fock builds go through the same kernels.  Entry points
+float64 tier; its Fock builds go through the same kernels.  Effective
+core potentials (mol/ecp.py, scf/ecp.py, ops/bessel.py) enter hcore as
+float64 PyTorch type-1/type-2 integrals, with their ip/ipip/gradient
+derivatives; an element missing from the basis data gets the generated
+fallback basis of mol/basis_gen.py.  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``, which runs the
 plain PyTorch versions of the kernels.
 """

@@ -1,7 +1,10 @@
-"""State carried across from the JAX package: its screened task plans.
+"""State carried across from the JAX package: its screened task plans
+and its parsed effective core potentials.
 
 This system has no weights; its state is the shell tables, the screened
-task plan and the density.  ``plan_from_numpy`` takes a plan as the JAX
+task plan, the ECP data and the density.  ``ecp_from_numpy`` takes the
+JAX package's ``{symbol: ECPData}`` (numpy fields) and returns this
+package's, so that one parsed ECP drives both engines.  ``plan_from_numpy`` takes a plan as the JAX
 ``JKEngine._build_plan`` emits it (a list of dicts of numpy arrays with
 keys ls, nprims, tier, cls_idx, tasks, bound, accum, nrows).  With
 ``layout='tile'`` it keeps the real tasks of every entry -- scatter,
@@ -72,4 +75,25 @@ def plan_from_numpy(entries, classes, tile_w: int = 64, layout: str = "tile"):
     return out
 
 
-__all__ = ["plan_from_numpy"]
+def ecp_from_numpy(ecp):
+    """JAX-package ``{symbol: ECPData}`` -> this package's ``{symbol:
+    ECPData}`` (mol/ecp.py), every array copied.  Reads the fields by
+    name (ncore; channels with l, powers, exps, coefs), so it takes any
+    object with that layout."""
+    from .mol.ecp import ECPChannel, ECPData
+
+    return {
+        sym: ECPData(
+            ncore=int(data.ncore),
+            channels=[
+                ECPChannel(int(ch.l), np.array(ch.powers, int),
+                           np.array(ch.exps, np.float64),
+                           np.array(ch.coefs, np.float64))
+                for ch in data.channels
+            ],
+        )
+        for sym, data in ecp.items()
+    }
+
+
+__all__ = ["plan_from_numpy", "ecp_from_numpy"]

@@ -1,9 +1,10 @@
 """Standalone molecular structure: atoms + basis -> shells.
 
-Copy of ``joltqc_tpu/mol/molecule.py`` without ECPs and without the
-generated fallback basis: an element missing from the basis data raises.
-The API is Mole-like (``atom`` strings, ``nao``, ``ao_loc``,
-``energy_nuc``), as for the reference (JoltQC jqc/pyscf/basis.py).
+Copy of ``joltqc_tpu/mol/molecule.py``, effective core potentials and
+the generated fallback basis included: an element missing from the basis
+data gets the warned, generated basis of ``mol/basis_gen.py``.  The API
+is Mole-like (``atom`` strings, ``nao``, ``ao_loc``, ``energy_nuc``), as
+for the reference (JoltQC jqc/pyscf/basis.py).
 """
 
 from __future__ import annotations
@@ -41,6 +42,10 @@ class Molecule:
     cart: bool = False
     basis: str = "sto-3g"
     shells: list[Shell] = field(default_factory=list)
+    # effective core potential: {element symbol: ECPData} (mol/ecp.py);
+    # replaces core electrons -- nelectron / energy_nuc / the nuclear
+    # attraction integrals all use the effective charge Z - ncore
+    ecp: dict = None
 
     # ------------------------------------------------------------ build
     @classmethod
@@ -52,8 +57,14 @@ class Molecule:
         charge: int = 0,
         spin: int = 0,
         cart: bool = False,
+        ecp=None,
     ) -> "Molecule":
-        """PySCF-style atom string: 'O 0 0 0; H 0 0 1' or newline-separated."""
+        """PySCF-style atom string: 'O 0 0 0; H 0 0 1' or newline-separated.
+
+        ``ecp``: NWChem-format ECP text block, a path to such a file, the
+        name of a shipped set (``mol/ecp_data/``), or a pre-parsed
+        {symbol: ECPData} dict.
+        """
         symbols, coords = [], []
         for entry in atom.replace(";", "\n").splitlines():
             parts = entry.split()
@@ -64,6 +75,10 @@ class Molecule:
         coords = np.asarray(coords, np.float64)
         if unit.lower().startswith("a"):
             coords = coords / BOHR
+        if isinstance(ecp, str):
+            from .ecp import load_ecp
+
+            ecp = load_ecp(ecp)
         m = cls(
             atom_symbols=symbols,
             coords=coords,
@@ -71,6 +86,7 @@ class Molecule:
             spin=spin,
             cart=cart,
             basis=basis,
+            ecp=ecp,
         )
         m.build()
         return m
@@ -85,14 +101,20 @@ class Molecule:
 
     def build(self) -> "Molecule":
         basis_tab = load_basis(self.basis)
+        generated = {}  # per-BUILD fallback cache (one warning per build)
         self.shells = []
         for ia, (sym, xyz) in enumerate(zip(self.atom_symbols, self.coords)):
             key = sym.capitalize()
-            shells = basis_tab.get(key)
+            shells = basis_tab.get(key) or generated.get(key)
             if shells is None:
-                raise KeyError(
-                    f"element {key!r} has no data in basis {self.basis!r}"
-                )
+                # elements beyond the embedded data get a generated
+                # (warned, reproducible) even-tempered fallback; see
+                # mol/basis_gen.py.  Kept OUT of the shared load_basis
+                # cache so the substitution warning fires for every
+                # molecule that uses it, not only the first per process.
+                from .basis_gen import fallback_shells
+
+                shells = generated[key] = fallback_shells(key, self.basis)
             for raw in shells:
                 coeffs = normalize_contraction(raw.l, raw.exps, raw.coeffs)
                 self.shells.append(
@@ -109,10 +131,20 @@ class Molecule:
     def atom_charges(self) -> np.ndarray:
         return np.array([charge_of(s) for s in self.atom_symbols])
 
+    def atom_ncore(self, ia: int) -> int:
+        """Core electrons replaced by an ECP on atom ia (0 if none)."""
+        if not self.ecp:
+            return 0
+        data = self.ecp.get(self.atom_symbols[ia].capitalize())
+        return data.ncore if data is not None else 0
+
     @property
     def atom_charges_eff(self) -> np.ndarray:
-        """Nuclear charges as float64 (no ECP in the port yet)."""
-        return self.atom_charges.astype(np.float64)
+        """Nuclear charges minus ECP core electrons (what electrons see)."""
+        z = self.atom_charges.astype(np.float64)
+        if self.ecp:
+            z = z - np.array([self.atom_ncore(i) for i in range(self.natm)])
+        return z
 
     @property
     def nelectron(self) -> int:

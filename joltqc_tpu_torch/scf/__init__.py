@@ -1,3 +1,4 @@
+from .ecp import ECPEngine  # noqa: F401
 from .hf import RHF  # noqa: F401
 from .jk_contracted import JKEngine  # noqa: F401
 from .rks import RKS  # noqa: F401

@@ -3,7 +3,9 @@
 Port of ``joltqc_tpu/scf/hf.py``.  The O(N^4) Fock build runs on the
 device through JKEngine; diagonalization, DIIS and the SCF loop stay on
 the host in float64.  One-electron matrices come from the numpy oracle
-below 60 shells and from scf/int1e.py (PyTorch float64) above.
+below 60 shells and from scf/int1e.py (PyTorch float64) above; with an
+ECP on the molecule, hcore adds the ECP matrix of scf/ecp.py (built on
+the device once per geometry).
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ class RHF:
                            cutoff_fp32=self.cutoff_fp32,
                            cutoff_fp64=self.cutoff_fp64)
         self._stv = None
+        self._ecp_mat = None
 
     # ---------------------------------------------------------------- core
     def _int1e_stv(self):
@@ -76,8 +79,17 @@ class RHF:
     def get_hcore(self):
         if len(self.mol.shells) >= self._INT1E_DEVICE_MIN_SHELLS:
             _, t, v = self._int1e_stv()
-            return t + v
-        return intor_np.kinetic(self.mol) + intor_np.nuclear(self.mol)
+            h = t + v
+        else:
+            h = intor_np.kinetic(self.mol) + intor_np.nuclear(self.mol)
+        if getattr(self.mol, "ecp", None):
+            if self._ecp_mat is None:
+                from .ecp import ECPEngine
+
+                self._ecp_mat = ECPEngine(self.layout,
+                                          device=self.device).build()
+            h = h + self._ecp_mat
+        return h
 
     def get_ovlp(self):
         if len(self.mol.shells) >= self._INT1E_DEVICE_MIN_SHELLS:
@@ -105,8 +117,8 @@ class RHF:
     # ------------------------------------------------------------ scanner
     def reset(self, mol: Molecule | None = None):
         """Point the driver at a new geometry, keeping settings; the
-        kernels are geometry-independent, so only the host-side tables
-        and task plan are rebuilt."""
+        kernels are geometry-independent, so only the host-side tables,
+        the task plan and the cached ECP matrix are rebuilt."""
         if mol is not None:
             self.mol = mol
         self._setup()
