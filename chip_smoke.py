@@ -69,10 +69,21 @@ Phases, each printed with its result and wall time on its own line:
                 O15 against central differences (1e-6), and the ECP
                 build's and gradient's wall, device time and launches;
                 the host oracles run in worker processes meanwhile;
-  9. a "kernels" JSON line; the last line is the device JSON.
+  9. pair       the pair J/K engine (scf/jk_pair.py: Hermite-density J,
+                E.M.E^T exchange; float64/float32 PyTorch on the card,
+                kernel A for its Schwarz q): H2O/sto-3g and O-H/6-31g
+                get_j and get_k, all fp64, against the dense oracle
+                (1e-9) and the same engine on the CPU (1e-12 of
+                max(1, max |V|)); at 0029/6-31g*, reference cutoffs, on
+                the converged RHF density: get_j and get_k against the
+                tile engine's J and K (1e-5), a repeat bit-identical,
+                each call's wall (first and warm), device time,
+                launches, busy share, tasks and primitive quartets per
+                tier, and kernel A's launches for the Schwarz q;
+ 10. a "kernels" JSON line; the last line is the device JSON.
 Any failed phase makes the script exit nonzero.  Options: --only PHASES
-(comma list, for debugging: build,eri,accum,anchors,full,modes,dft,ecp;
-modes runs the 0029 SCF itself when full is left out).
+(comma list, for debugging: build,eri,accum,anchors,full,modes,dft,ecp,
+pair; modes and pair run the 0029 SCF themselves when full is left out).
 """
 
 from __future__ import annotations
@@ -1988,11 +1999,12 @@ def _ecp_engine_checks(case, cpu, oracle):
         "(tol 5e-11)")
 
 
-def _ecp_timed(fn):
+def _ecp_timed(fn, by_name=None):
     """(result, wall s, device ms or None, kernel launches) of fn() on
     the card: the wall of a synchronised call, then the device time and
     launch count of a second call from the profiler's raw device events
-    (its key_averages parses 1e5 launches in Python for a minute)."""
+    (its key_averages parses 1e5 launches in Python for a minute).
+    ``by_name``: a dict to fill with kernel name -> [ns, launches]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2009,6 +2021,10 @@ def _ecp_timed(fn):
         if ev.device_type() == torch.autograd.DeviceType.CUDA:
             dev_ns += ev.duration_ns()
             launches += not ev.name().startswith(("Memcpy", "Memset"))
+            if by_name is not None:
+                row = by_name.setdefault(ev.name(), [0, 0])
+                row[0] += ev.duration_ns()
+                row[1] += 1
     return out, wall, (dev_ns / 1e6 if dev_ns else None), launches
 
 
@@ -2181,10 +2197,125 @@ def phase_ecp(ctx):
             f"{wall:.1f} s")
 
 
+# ------------------------------------------------------------ phase 9
+# the pair engine's small anchors: (atoms, basis, density seed)
+PAIR_ANCHORS = (("h2o/sto-3g", H2O, "sto-3g", 0),
+                ("o-h/6-31g", "O 0 0 0; H 0 0 0.96", "6-31g", 4))
+PAIR_ORACLE_TOL = 1e-9   # tests/test_jk_pair.py, all fp64
+PAIR_CPU_TOL = 1e-12     # of max(1, max |V|): the card against the CPU
+PAIR_TILE_TOL = 1e-5     # tests/test_jk_pair.py:45, :90, mixed tiers
+
+
+def _pair_anchor(name, atoms, basis, seed):
+    """get_j and get_k of one small system, all fp64, on the card against
+    the dense oracle and the same engine on the CPU."""
+    import numpy as np
+    from joltqc_tpu_torch.mol import Molecule, intor_np
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.scf import PairJEngine
+
+    mol = Molecule.from_atom_string(atoms, basis=basis)
+    a = np.random.default_rng(seed).uniform(-1, 1, (mol.nao, mol.nao))
+    dm = a + a.T
+    g = intor_np.eri(mol)
+    ref = (np.einsum("ijkl,kl->ij", g, dm), np.einsum("ijkl,jk->il", g, dm))
+    out = {}
+    for dev in (None, "cpu"):
+        eng = PairJEngine(BasisLayout(mol), device=dev, cutoff_fp32=1e-30,
+                          cutoff_fp64=1e-30)
+        out[dev] = (eng.get_j(dm), eng.get_k(dm))
+    parts = []
+    for k, what in enumerate("JK"):
+        d_or = float(np.abs(out[None][k] - ref[k]).max())
+        scale = max(1.0, float(np.abs(out["cpu"][k]).max()))
+        d_cpu = float(np.abs(out[None][k] - out["cpu"][k]).max()) / scale
+        check(d_or < PAIR_ORACLE_TOL, f"pair {name}: {what} vs oracle "
+              f"{d_or:.2e}")
+        check(d_cpu < PAIR_CPU_TOL, f"pair {name}: {what} card vs CPU "
+              f"{d_cpu:.2e}")
+        parts.append(f"{what} vs oracle {d_or:.1e}, vs CPU {d_cpu:.1e}")
+    say(f"  pair {name} ({mol.nao} AO): " + "; ".join(parts)
+        + f" (tol {PAIR_ORACLE_TOL:g}, {PAIR_CPU_TOL:g} of max(1, |V|))")
+
+
+def _pair_call(eng, fn, dm, label):
+    """Cold call (kernel A for the Schwarz q, counted), warm call and a
+    profiled call of one pair-engine method: its result, printed wall,
+    device ms, launches, busy share, tasks and quartets per tier."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.ops.eri import eri_chunk as eri_k
+
+    eri_k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = fn(dm)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    a_launches = eri_k.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    names = {}
+    warm, wall, dev_ms, launches = _ecp_timed(lambda: fn(dm), names)
+    check(np.isfinite(first).all(), f"pair 0029 {label}: not finite")
+    check(np.array_equal(first, warm), f"pair 0029 {label}: a repeated call "
+          "differs")
+    run = eng.last_run[label]
+    busy = "not measured" if dev_ms is None else \
+        f"{dev_ms / (wall * 1e3):.3f}"
+    dev = "not measured" if dev_ms is None else f"{dev_ms:.1f} ms"
+    say(f"  pair 0029 {label}: wall first {cold:.3f} s (kernel A launches "
+        f"{a_launches}), warm {wall:.3f} s; device {dev} in {launches} "
+        f"launches, busy {busy}; tasks fp64 {run['tasks']['fp64']} f32 "
+        f"{run['tasks']['f32']}, quartets fp64 {run['quartets']['fp64']} f32 "
+        f"{run['quartets']['f32']}, chunks {run['chunks']}, host "
+        f"screening {run['screen_s']:.3f} s; peak device memory {peak:.2f} "
+        "GiB; repeat bit-identical")
+    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:6]
+    for name, (ns, n) in top:
+        say(f"  pair 0029 {label} profile: {ns / 1e6:9.1f} ms x{n:<7d} "
+            f"{name[:80]}")
+    return first, a_launches
+
+
+def phase_pair(ctx):
+    import numpy as np
+    from joltqc_tpu_torch.scf import PairJEngine
+
+    t0 = time.perf_counter()
+    for case in PAIR_ANCHORS:
+        _pair_anchor(*case)
+    say(f"  pair anchors done in {time.perf_counter() - t0:.1f} s")
+    mf = _scf_0029(ctx)
+    dm = mf.dm
+    t0 = time.perf_counter()
+    jt, kt = mf.jk.get_jk(dm)
+    say(f"  pair 0029: tile get_jk on the converged density "
+        f"{time.perf_counter() - t0:.3f} s; max |D_int| "
+        f"{np.abs(mf.layout.dm_to_internal(dm)).max():.6f} (the screening "
+        "shifts by its log)")
+    eng = PairJEngine(mf.layout)
+    vj, a_j = _pair_call(eng, eng.get_j, dm, "get_j")
+    vk, a_k = _pair_call(eng, eng.get_k, dm, "get_k")
+    check(a_j > 0, "pair 0029: kernel A not launched for the Schwarz q")
+    dj = float(np.abs(vj - jt).max())
+    dk = float(np.abs(vk - kt).max())
+    ej = 0.5 * float(np.einsum("ij,ji->", dm, vj - jt))
+    ek = 0.25 * float(np.einsum("ij,ji->", dm, vk - kt))
+    say(f"  pair 0029 vs tile: max |dJ| {dj:.2e}, max |dK| {dk:.2e} (tol "
+        f"{PAIR_TILE_TOL:g}); 1/2 tr(D dJ) {ej:.3e}, 1/4 tr(D dK) {ek:.3e} Eh")
+    check(dj < PAIR_TILE_TOL and dk < PAIR_TILE_TOL,
+          f"pair 0029: |dJ| {dj:.2e}, |dK| {dk:.2e} vs the tile engine")
+    return (f"0029 pair J/K within {max(dj, dk):.1e} of the tile engine; "
+            f"get_j {eng.last_run['get_j']['wall_s']:.2f} s, get_k "
+            f"{eng.last_run['get_k']['wall_s']:.2f} s (last calls)")
+
+
 # --------------------------------------------------------------- main
 PHASES = (("build", phase_build), ("eri", phase_eri), ("accum", phase_accum),
           ("anchors", phase_anchors), ("full", phase_full),
-          ("modes", phase_modes), ("dft", phase_dft), ("ecp", phase_ecp))
+          ("modes", phase_modes), ("dft", phase_dft), ("ecp", phase_ecp),
+          ("pair", phase_pair))
 
 
 def main(argv=None):

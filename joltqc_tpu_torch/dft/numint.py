@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..mol.layout import BasisLayout
-from ..ops.cuda import resolve_device
+from ..ops.cuda import check_fp32_matmul, resolve_device
 from ..ops.harmonics import cart_components
 
 # elements of one (points x width) slab per chunk of grid blocks: bounds
@@ -162,19 +162,6 @@ def _vxc_blocks(aos, wv, family):
     return half + half.transpose(1, 2)
 
 
-def _check_fp32_matmul(dev):
-    """The float32 bulk must run at full float32 precision on the card."""
-    if dev.type == "cuda" and (
-        torch.backends.cuda.matmul.allow_tf32
-        or torch.get_float32_matmul_precision() != "highest"
-    ):
-        raise RuntimeError(
-            "joltqc_tpu_torch numint: TF32 matmuls are enabled; the float32 "
-            "grid path needs torch.backends.cuda.matmul.allow_tf32 = False "
-            "and float32 matmul precision 'highest'"
-        )
-
-
 def _chunk_blocks(B, width):
     """Grid blocks per chunk for slabs of ``width`` columns."""
     return max(1, _CHUNK_ELEMS // (B * max(width, 1)))
@@ -224,7 +211,7 @@ class NumInt:
     # --------------------------------------------------------------- rho
     def _rho(self, blocks, dm, family):
         """rho rows (nblk, rows, B) float64 numpy of the given blocks."""
-        _check_fp32_matmul(self.device)
+        check_fp32_matmul(self.device, "numint")
         deriv = 0 if family == "lda" else 1
         rows = {"lda": 1, "gga": 4, "mgga": 5}[family]
         nblk, B = blocks.shape[:2]
@@ -241,7 +228,7 @@ class NumInt:
     # --------------------------------------------------------------- vxc
     def _vxc(self, blocks, wv_blocks, family):
         """V_xc (nao, nao) float64 numpy over the given blocks."""
-        _check_fp32_matmul(self.device)
+        check_fp32_matmul(self.device, "numint")
         deriv = 0 if family == "lda" else 1
         nblk, B = blocks.shape[:2]
         grid = torch.as_tensor(blocks, dtype=torch.float32, device=self.device)

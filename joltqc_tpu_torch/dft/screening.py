@@ -25,11 +25,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.cuda import check_fp32_matmul
 from ..ops.harmonics import cart_components
 from .numint import (
     NumInt,
     _ao_groups,
-    _check_fp32_matmul,
     _chunk_blocks,
     _family_arg,
     _rho_rows,
@@ -226,7 +226,7 @@ def eval_rho_screened(ni: NumInt, scr: GridScreening, dm_int, family,
     those blocks are evaluated (incremental DFT; unselected blocks
     return 0 rows)."""
     family = _family_arg(family)
-    _check_fp32_matmul(ni.device)
+    check_fp32_matmul(ni.device, "numint")
     deriv = 0 if family == "lda" else 1
     rows = {"lda": 1, "gga": 4, "mgga": 5}[family]
     tables = _gather_group_tables(ni)
@@ -261,7 +261,7 @@ def eval_vxc_screened(ni: NumInt, scr: GridScreening, wv, family,
     ``block_sel``: optional global block-id selection (incremental DFT);
     repeated pad positions are zero-weighted so the sum stays exact."""
     family = _family_arg(family)
-    _check_fp32_matmul(ni.device)
+    check_fp32_matmul(ni.device, "numint")
     deriv = 0 if family == "lda" else 1
     tables = _gather_group_tables(ni)
     nao = ni.nao

@@ -48,6 +48,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def check_fp32_matmul(dev, what):
+    """A float32 path must run at full float32 precision on the card:
+    raise when TF32 matmuls are enabled."""
+    if dev.type == "cuda" and (
+        torch.backends.cuda.matmul.allow_tf32
+        or torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise RuntimeError(
+            f"joltqc_tpu_torch {what}: TF32 matmuls are enabled; the float32 "
+            "path needs torch.backends.cuda.matmul.allow_tf32 = False and "
+            "float32 matmul precision 'highest'"
+        )
+
+
 def _nvcc():
     cand = shutil.which("nvcc")
     if cand is None and os.path.exists("/usr/local/cuda/bin/nvcc"):

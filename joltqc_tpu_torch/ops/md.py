@@ -114,10 +114,11 @@ def e_gather_index(li: int, lj: int):
 
 # ------------------------------------------------------------ pair data
 def make_pair_data(A, B, a, b, coef):
-    """Pair quantities.  A, B: (T, 3); a, b, coef: (T,)."""
+    """Pair quantities.  A, B: (*batch, 3); a, b, coef: (*batch,) (A and
+    B may broadcast against a and b, e.g. (P, 1, 3) against (P, npp))."""
     p = a + b
     invp = 1.0 / p
-    P = (a[:, None] * A + b[:, None] * B) * invp[:, None]
+    P = (a[..., None] * A + b[..., None] * B) * invp[..., None]
     AB = A - B
     r2 = (AB * AB).sum(-1)
     epref = torch.exp(-(a * b * invp) * r2)
@@ -125,62 +126,62 @@ def make_pair_data(A, B, a, b, coef):
 
 
 def e_table(li: int, lj: int, inv2p, xpa, xpb, epref):
-    """Hermite E coefficients (T, 3, li+1, lj+1, li+lj+1); the x row is
-    seeded with the gaussian prefactor ``epref``, y/z rows with 1."""
-    T = epref.shape[0]
+    """Hermite E coefficients (*batch, 3, li+1, lj+1, li+lj+1); the x row
+    is seeded with the gaussian prefactor ``epref``, y/z rows with 1.
+    inv2p, epref: (*batch,); xpa, xpb: (*batch, 3)."""
     n = li + lj + 1
-    E = torch.zeros((T, 3, li + 1, lj + 1, n), dtype=epref.dtype,
+    E = torch.zeros((*epref.shape, 3, li + 1, lj + 1, n), dtype=epref.dtype,
                     device=epref.device)
-    E[:, 0, 0, 0, 0] = epref
-    E[:, 1:, 0, 0, 0] = 1.0
-    h = inv2p[:, None, None]
+    E[..., 0, 0, 0, 0] = epref
+    E[..., 1:, 0, 0, 0] = 1.0
+    h = inv2p[..., None, None]
     tw = torch.arange(1, n + 1, dtype=epref.dtype, device=epref.device)
 
     def step(cur, xp):
         # new[t] = inv2p*cur[t-1] + xp*cur[t] + (t+1)*cur[t+1]
         up = torch.nn.functional.pad(cur[..., :-1], (1, 0))
         down = torch.nn.functional.pad(cur[..., 1:], (0, 1))
-        return h * up + xp[:, :, None] * cur + tw * down
+        return h * up + xp[..., None] * cur + tw * down
 
     for i in range(li):
-        E[:, :, i + 1, 0] = step(E[:, :, i, 0], xpa)
+        E[..., i + 1, 0, :] = step(E[..., i, 0, :], xpa)
     for j in range(lj):
         for i in range(li + 1):
-            E[:, :, i, j + 1] = step(E[:, :, i, j], xpb)
+            E[..., i, j + 1, :] = step(E[..., i, j, :], xpb)
     return E
 
 
 def e_rows(li: int, lj: int, E):
-    """(T, 3, li+1, lj+1, n) E table -> (T, nf_ij, NT_ij) products
-    Ex(t) Ey(u) Ez(v) over tri_set(li+lj)."""
+    """(*batch, 3, li+1, lj+1, n) E table -> (*batch, nf_ij, NT_ij)
+    products Ex(t) Ey(u) Ez(v), the last axis in tri_set(li+lj) order."""
     idx, ok = e_gather_index(li, lj)
-    T = E.shape[0]
-    flat = E.reshape(T, 3, -1)
+    flat = E.reshape(*E.shape[:-4], 3, -1)
     rows = None
     for d in range(3):
-        g = flat[:, d, torch.as_tensor(idx[d], device=E.device)]
+        g = flat[..., d, :][..., torch.as_tensor(idx[d], device=E.device)]
         rows = g if rows is None else rows * g
     return rows * torch.as_tensor(ok, dtype=E.dtype, device=E.device)
 
 
 def r_table(L: int, theta, PQ, fvals):
-    """Hermite Coulomb R^0_{tuv} stacked over tri_set(L): (T, NR)."""
+    """Hermite Coulomb R^0_{tuv} stacked over tri_set(L): (*batch, NR).
+    theta: (*batch,); PQ: (*batch, 3); fvals: (L+1, *batch)."""
     axis, idx1, idx2, fac = r_recurrence_tables(L)
     dev, dt = theta.device, theta.dtype
     nr = len(axis)
     m2t = -2.0 * theta
-    Xvec = PQ[:, torch.as_tensor(axis, device=dev)]
+    Xvec = PQ[..., torch.as_tensor(axis, device=dev)]
     i1 = torch.as_tensor(idx1, device=dev)
     i2 = torch.as_tensor(idx2, device=dev)
     fc = torch.as_tensor(fac, dtype=dt, device=dev)
     pw = [torch.ones_like(theta)]
     for _ in range(L):
         pw.append(pw[-1] * m2t)
-    cur = torch.zeros((theta.shape[0], nr), dtype=dt, device=dev)
-    cur[:, 0] = pw[L] * fvals[L]
+    cur = torch.zeros((*theta.shape, nr), dtype=dt, device=dev)
+    cur[..., 0] = pw[L] * fvals[L]
     for m in range(L - 1, -1, -1):
-        cur = Xvec * cur[:, i1] + fc * cur[:, i2]
-        cur[:, 0] = pw[m] * fvals[m]
+        cur = Xvec * cur[..., i1] + fc * cur[..., i2]
+        cur[..., 0] = pw[m] * fvals[m]
     return cur
 
 
@@ -258,5 +259,5 @@ def eri_plain(ls, nprims, quartet, omega: float = 0.0):
     return out
 
 
-__all__ = ["tri_set", "make_pair_data", "e_table", "r_table",
-           "cart_eri_primitive", "eri_plain"]
+__all__ = ["tri_set", "coupling_index", "ket_signs", "make_pair_data",
+           "e_table", "e_rows", "r_table", "cart_eri_primitive", "eri_plain"]

@@ -36,10 +36,11 @@ the scatter and block branches of ``_class_scan_body`` (``_run_plan``),
    a non-symmetric density); the E-space is folded to AO space by the 0/1
    matrix R (vj = R^T E R).
 
-The port has no compile step, so the JAX package's autotune table
-(``accum='auto'``), plan cache, q cache, fused launches and pow2 chunk
-padding are not carried over; the pad tasks the TPU needed for fixed
-chunk shapes are not made (a shorter last chunk).
+The JAX package's autotune table (``accum='auto'``), plan cache and q
+cache are queued (ROADMAP).  Its fused launches and pow2 chunk padding
+are not carried over, since the port has no compile step; the pad tasks
+the TPU needed for fixed chunk shapes are not made (a shorter last
+chunk).
 """
 
 from __future__ import annotations

@@ -268,3 +268,49 @@ def test_block_kernel_window_cases_bit_identical(cuda, dt, case):
     assert bool(acc[0].any())
     assert torch.equal(acc[0], acc[1])
     assert torch.equal(acc[0], acc[2]) and torch.equal(acc[0], acc[3])
+
+
+# ----------------------------------------------------- pair J/K engine
+PAIR_H2O = "O 0 0 0.1174; H -0.757 0 -0.4696; H 0.757 0 -0.4696"
+
+
+@pytest.mark.parametrize("cutoffs", [(1e-30, 1e-30), (1e-14, 1.0)])
+def test_pair_engine_card_matches_cpu(cuda, cutoffs):
+    """PairJEngine on the card against the same engine on the CPU
+    (H2O/sto-3g; all fp64, and a split with most tasks in f32):
+    1e-12 of max(1, max |V|) in fp64, 1e-6 with the f32 tier."""
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.scf import PairJEngine
+
+    mol = Molecule.from_atom_string(PAIR_H2O, basis="sto-3g")
+    a = np.random.default_rng(0).uniform(-1, 1, (mol.nao, mol.nao))
+    dm = a + a.T
+    kw = dict(cutoff_fp32=cutoffs[0], cutoff_fp64=cutoffs[1])
+    card = PairJEngine(BasisLayout(mol), device=cuda, **kw)
+    cpu = PairJEngine(BasisLayout(mol), device="cpu", **kw)
+    tol = 1e-12 if cutoffs[1] < 1e-20 else 1e-6
+    for got, ref in zip(card.get_jk(dm), cpu.get_jk(dm)):
+        assert np.abs(got - ref).max() < tol * max(1.0, np.abs(ref).max())
+    assert np.array_equal(card.get_j(dm), card.get_j(dm))
+
+
+def test_pair_engine_refuses_tf32(cuda):
+    """The f32 tier runs at full float32 precision: with TF32 matmuls on,
+    get_j and get_k raise."""
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.scf import PairJEngine
+
+    mol = Molecule.from_atom_string(PAIR_H2O, basis="sto-3g")
+    eng = PairJEngine(BasisLayout(mol), device=cuda)
+    dm = np.eye(mol.nao)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            eng.get_j(dm)
+        with pytest.raises(RuntimeError, match="TF32"):
+            eng.get_k(dm)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
