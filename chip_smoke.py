@@ -34,13 +34,28 @@ Phases, each printed with its result and wall time on its own line:
                 version on a chunk of that path, and each kernel and its
                 plain version are timed at the shapes of that path
                 (kernel B on K stream ac and J stream ab);
-  6. modes      at the same 302 AO, on the converged density: get_jk of a
+  6. engine     the plan and Schwarz-q disk caches, profiling and the
+                autotune table at the same 302 AO, in its own empty cache
+                directory with the cache on and every build saved: a
+                cold RHF of the SCF's first ENGINE_CYCLES cycles (builds,
+                saves, bytes on disk, kernel A's launches), the same in a
+                fresh RHF and engine (0 builds, as many loads as the cold
+                run's builds, q from disk with no kernel A launch, the
+                same energy, density and get_jk to the bit); then on the
+                converged density of phase full: get_jk with
+                profile=True (the same bits, class_time by (ls, nprims,
+                tier) against the call's wall), accum='auto' on the
+                committed table against a tile engine (bit-identical
+                where every class runs as tile, else MODE_TOL['tile']), a
+                bounded tune_workload into the phase's directory and
+                'auto' on the table it wrote;
+  7. modes      at the same 302 AO, on the converged density: get_jk of a
                 scatter and a block engine against the tile path's, with
                 kernel D's launches counted; hermi=0, omega and a stack;
                 kernels C and D held against their plain versions and
                 timed on chunks of that path; incremental RHF against the
                 direct run;
-  7. dft        restricted Kohn-Sham on the card (its Fock builds through
+  8. dft        restricted Kohn-Sham on the card (its Fock builds through
                 kernels A and B): H2O/6-31g lda,vwn, pbe, b3lyp and
                 wb97x-v (VV10 off) against a float64 host oracle SCF
                 (intor_np, numint_np) to 1e-8 Eh; wb97x-v with VV10 on a
@@ -52,7 +67,7 @@ Phases, each printed with its result and wall time on its own line:
                 launched, the grid's electron count, Exc and Vxc of the
                 mixed path against a plain float64 evaluation on the
                 card, and the device time of rho, xc and vxc;
-  8. ecp        effective core potentials on the card (scf/ecp.py, no
+  9. ecp        effective core potentials on the card (scf/ecp.py, no
                 fallback): (1) H2, O-H and Na2 (the Na 10-core ECP, every
                 channel ul + S..G): build, gradient, build_ip and both
                 build_ipip against the same engine on the CPU (1e-12
@@ -69,7 +84,7 @@ Phases, each printed with its result and wall time on its own line:
                 O15 against central differences (1e-6), and the ECP
                 build's and gradient's wall, device time and launches;
                 the host oracles run in worker processes meanwhile;
-  9. pair       the pair J/K engine (scf/jk_pair.py: Hermite-density J,
+ 10. pair       the pair J/K engine (scf/jk_pair.py: Hermite-density J,
                 E.M.E^T exchange; float64/float32 PyTorch on the card,
                 kernel A for its Schwarz q): H2O/sto-3g and O-H/6-31g
                 get_j and get_k, all fp64, against the dense oracle
@@ -80,21 +95,29 @@ Phases, each printed with its result and wall time on its own line:
                 each call's wall (first and warm), device time,
                 launches, busy share, tasks and primitive quartets per
                 tier, and kernel A's launches for the Schwarz q;
- 10. a "kernels" JSON line; the last line is the device JSON.
+ 11. a "kernels" JSON line; the last line is the device JSON.
+The plan and q caches (joltqc_tpu_torch/utils/plancache.py) live in a
+fresh temporary JQC_CACHE_DIR, removed at exit, and are off
+(JQC_PLAN_CACHE=0) in every phase but engine, so that no phase loads what
+an earlier phase or an earlier run wrote.
 Any failed phase makes the script exit nonzero.  Options: --only PHASES
-(comma list, for debugging: build,eri,accum,anchors,full,modes,dft,ecp,
-pair; modes and pair run the 0029 SCF themselves when full is left out).
+(comma list, for debugging: build,eri,accum,anchors,full,engine,modes,
+dft,ecp,pair; modes and pair run the 0029 SCF themselves when full is
+left out).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1043,6 +1066,231 @@ def _kernel_split(fn, reps):
 
 
 # ------------------------------------------------------------ phase 6
+ENGINE_TUNE_BUDGET_S = 30.0  # tune_workload's wall budget in phase engine
+# depth of phase engine's cold and warm RHF: its first 6 cycles, each of
+# which builds (cold) or loads (warm) its own plan (the 27-cycle SCF
+# rebuilds on cycles 0-17 only); cut from 27 when the whole script passed
+# 900 s (PERF.md)
+ENGINE_CYCLES = 6
+
+
+@contextlib.contextmanager
+def _env(**kv):
+    """Set environment variables for a block, then restore them."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _engine_scf(label):
+    """A fresh 0029 RHF of ENGINE_CYCLES cycles: (mf, E, SCF wall s,
+    kernel A and B launches), the counts set to 0 just before and read
+    just after."""
+    import torch
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.ops.accum_tile import accum_tile_chunk as acc_k
+    from joltqc_tpu_torch.ops.eri import eri_chunk as eri_k
+    from joltqc_tpu_torch.scf import RHF
+
+    mf = RHF(Molecule.from_xyz_file(XYZ_0029, basis="6-31g*"),
+             max_cycle=ENGINE_CYCLES)
+    eri_k.launches = eri_k.generic_launches = acc_k.launches = 0
+    t0 = time.perf_counter()
+    e = mf.kernel()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {"eri": eri_k.launches, "accum_tile": acc_k.launches,
+         "eri_generic": eri_k.generic_launches}
+    tm = mf.jk.timing
+    say(f"  engine {label}: E={e:.10f} cycles={mf.scf_summary['cycles']} "
+        f"scf_wall_s={wall:.2f} plan_builds={tm.get('plan_builds', 0)} "
+        f"plan_build_s={tm.get('plan_build_s', 0.0):.2f} plan_saves="
+        f"{tm.get('plan_saves', 0)} plan_save_s={tm.get('plan_save_s', 0.0):.2f}"
+        f" plan_save_bytes={tm.get('plan_save_bytes', 0)} plan_loads="
+        f"{tm.get('plan_loads', 0)} plan_load_s={tm.get('plan_load_s', 0.0):.2f}"
+        f" launches={n}")
+    check(mf.scf_summary["cycles"] == ENGINE_CYCLES and math.isfinite(e),
+          f"engine {label}: {mf.scf_summary['cycles']} cycles, E {e}")
+    check(n["eri_generic"] == 0, f"engine {label}: generic ERI launches")
+    return mf, e, wall, n
+
+
+def _timed_jk(eng, dm):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.get_jk(dm)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _same_jk(a, b):
+    import numpy as np
+
+    return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+def _auto_vs_tile(label, eng, dm, jt, wall_tile):
+    """get_jk of an 'auto' engine on the converged density against the
+    tile engine's J/K jt: tasks by mode, a repeat bit-identical, and the
+    bits of jt where every class runs as tile (exact integer limbs, any
+    chunking), else MODE_TOL['tile'] of max(|J|, 1)."""
+    _, cold = _timed_jk(eng, dm)  # plan build (saved) and uploads
+    ja, wall = _timed_jk(eng, dm)
+    check(_same_jk(ja, eng.get_jk(dm)), f"engine {label}: repeat differs")
+    by = eng.plan_stats["by_accum"]
+    chunks = sorted({eng._entry_chunk(e) for e in eng._plan})
+    dj, dk, scale = _jk_diff(ja, jt)
+    all_tile = by["tile"] == eng.plan_stats["ntasks"]
+    say(f"  engine {label}: tasks by mode {by}, chunks {chunks[:6]}"
+        f"{'...' if len(chunks) > 6 else ''}; first get_jk {cold:.3f} s, "
+        f"warm {wall:.3f} s (tile engine {wall_tile:.3f} s); vs tile "
+        f"|dJ| {dj:.3e} |dK| {dk:.3e}" + (" (every class tile: bit-identical "
+                                           "required)" if all_tile else
+                                           f" (limit {MODE_TOL['tile']:g} x "
+                                           f"{scale:.4g})"))
+    if all_tile:
+        check(_same_jk(ja, jt), f"engine {label}: J/K differ from the tile "
+              "engine's with every class on tile")
+    else:
+        check(max(dj, dk) < MODE_TOL["tile"] * scale,
+              f"engine {label}: |dJ| {dj:.3e} |dK| {dk:.3e} vs tile")
+    return wall, by
+
+
+def phase_engine(ctx):
+    import numpy as np
+    from joltqc_tpu_torch.ops.eri import eri_chunk as eri_k
+    from joltqc_tpu_torch.scf import JKEngine
+    from joltqc_tpu_torch.utils import autotune, plancache
+
+    # the converged density of phase full's SCF (cache off) for (3)-(5)
+    dm_conv = _scf_0029(ctx).dm
+    base = os.path.join(ctx["cache_dir"], "engine")
+    os.makedirs(base)
+    with _env(JQC_CACHE_DIR=base, JQC_PLAN_CACHE="1",
+              JQC_PLAN_CACHE_MIN_SECS="0"):
+        autotune._TABLE = None
+        plans = os.path.join(plancache.cache_root(), "plans")
+        # (1) cold: every plan built and saved, every q computed and saved
+        cold, e_c, wall_c, n_c = _engine_scf("cold")
+        tc = cold.jk.timing
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(plans) for f in fs)
+        nq = sum(-(-pc.npair // cold.jk._chunk(
+            (cold.jk.classes[pc.ci].l, cold.jk.classes[pc.cj].l) * 2))
+            for pc in cold.jk.pair_classes)
+        check(tc["plan_builds"] > 0 and tc.get("plan_loads", 0) == 0,
+              "engine cold: a plan was loaded in an empty cache")
+        check(tc.get("plan_saves", 0) == tc["plan_builds"],
+              f"engine cold: {tc.get('plan_saves', 0)} plans saved of "
+              f"{tc['plan_builds']} built")
+        say(f"  engine cold: {nbytes} bytes on disk in "
+            f"{sum(len(fs) for _, _, fs in os.walk(plans))} files; kernel A "
+            f"launches {n_c['eri']}, {nq} of them for the Schwarz q")
+        # (2) warm: a fresh RHF and engine load every plan and q
+        warm, e_w, wall_w, n_w = _engine_scf("warm")
+        tw = warm.jk.timing
+        check(warm.scf_summary["cycles"] == cold.scf_summary["cycles"]
+              and e_w == e_c and np.array_equal(warm.dm, cold.dm),
+              f"engine warm: E {e_w!r} in {warm.scf_summary['cycles']} "
+              f"cycles vs cold {e_c!r} in {cold.scf_summary['cycles']}")
+        check(tw.get("plan_builds", 0) == 0, "engine warm: a plan was built")
+        check(tw.get("plan_loads", 0) == tc["plan_builds"],
+              f"engine warm: {tw.get('plan_loads', 0)} loads for "
+              f"{tc['plan_builds']} cold builds")
+        check(n_w["eri"] == n_c["eri"] - nq,
+              f"engine warm: kernel A launches {n_w['eri']}, want "
+              f"{n_c['eri']} - {nq} Schwarz-q launches")
+        eri_k.launches = 0
+        for pc_c, pc_w in zip(cold.jk.pair_classes, warm.jk.pair_classes):
+            q = warm.jk._ensure_q(pc_w)
+            check(np.array_equal(q, pc_c.q_log)
+                  and np.array_equal(pc_w.i_loc, pc_c.i_loc)
+                  and np.array_equal(pc_w.j_loc, pc_c.j_loc),
+                  "engine warm: q from disk differs from the computed q")
+        check(eri_k.launches == 0, f"engine warm: {eri_k.launches} kernel A "
+              "launches for a q on disk")
+        dm = cold.dm  # the last cycle's density: both engines' plans hold
+        jc, _ = _timed_jk(cold.jk, dm)
+        jw, _ = _timed_jk(warm.jk, dm)
+        check(_same_jk(jc, jw), "engine: get_jk on the last density differs "
+              "between the cold and the warm engine")
+        nb, nl = tc["plan_builds"], tw["plan_loads"]
+        say(f"  engine warm vs cold: SCF {wall_w:.2f} s vs {wall_c:.2f} s; "
+            f"plan_load_s {tw['plan_load_s']:.2f} ({tw['plan_load_s'] / nl:.3f}"
+            f" s a load) vs plan_build_s {tc['plan_build_s']:.2f} "
+            f"({tc['plan_build_s'] / nb:.3f} s a build); E, cycles, density "
+            f"and get_jk bit-identical; q from disk, 0 kernel A launches; "
+            f"launches {n_w}")
+        # (3)-(5) on the converged density, with a tile engine screened at
+        # that density (the SCF engines' plans were screened at others)
+        dm = dm_conv
+        kw = dict(cutoff_fp32=cold.cutoff_fp32, cutoff_fp64=cold.cutoff_fp64)
+        tile = JKEngine(cold.layout, accum="tile", **kw)
+        tile.get_jk(dm)
+        jc, wall_tile = _timed_jk(tile, dm)
+        # (3) profile=True: the same bits, class_time over the plan
+        eng = tile
+        eng.profile, eng.class_time = True, {}
+        jp, wall_p = _timed_jk(eng, dm)
+        eng.profile = False
+        keys = {(e["ls"], e["nprims"], e["tier"]) for e in eng._plan}
+        check(_same_jk(jp, jc), "engine profile: J/K differ")
+        check(set(eng.class_time) == keys, "engine profile: class_time keys "
+              "are not the plan's classes")
+        tot = sum(eng.class_time.values())
+        for key, t in sorted(eng.class_time.items(), key=lambda kv: -kv[1])[:8]:
+            say(f"  engine profile: {t * 1e3:9.3f} ms  {key}")
+        say(f"  engine profile: {len(keys)} classes, class_time sum "
+            f"{tot * 1e3:.3f} ms of the call's {wall_p * 1e3:.3f} ms wall "
+            f"(unprofiled warm call {wall_tile * 1e3:.3f} ms); J/K "
+            "bit-identical")
+        # (4) accum='auto' on the committed table
+        autotune._TABLE = None
+        committed = dict(autotune.load_table())
+        say(f"  engine auto: committed table {autotune._device_name()} with "
+            f"{len(committed)} classes")
+        wall_a, by_a = _auto_vs_tile("auto", JKEngine(cold.layout, accum="auto",
+                                                      **kw), dm, jc, wall_tile)
+        # (5) a bounded tune into the phase's directory, then 'auto' on it
+        t0 = time.perf_counter()
+        table = autotune.tune_workload(tile, max_chunks=4, verbose=False,
+                                       budget_s=ENGINE_TUNE_BUDGET_S)
+        t_tune = time.perf_counter() - t0
+        path = autotune._table_path()
+        with open(path) as f:
+            user = json.load(f)
+        autotune._TABLE = None
+        loaded = autotune.load_table()
+        tuned = [k for k in user if k not in committed or user[k] !=
+                 committed[k]]
+        check(path.startswith(base) and user == table and loaded == table,
+              "engine tune: load_table does not return the written table")
+        say(f"  engine tune: {t_tune:.1f} s (budget {ENGINE_TUNE_BUDGET_S:g}),"
+            f" {len(table)} classes in {path}, {len(tuned)} of them new or "
+            f"changed over the committed table; e.g. " + "; ".join(
+                f"{k} {user[k]}" for k in tuned[:3]))
+        _auto_vs_tile("auto-tuned", JKEngine(cold.layout, accum="auto", **kw),
+                      dm, jc, wall_tile)
+    for k, row in (("eri", "kern_a"), ("accum_tile", "kern_b")):
+        if row in ctx:  # the kernels line counts this phase's SCFs too
+            ctx[row]["launches"] += n_c[k] + n_w[k]
+    return (f"cold SCF {wall_c:.2f} s ({nb} builds, {nbytes} bytes), warm "
+            f"{wall_w:.2f} s ({nl} loads, {tw['plan_load_s']:.2f} s), "
+            f"bit-identical; 'auto' get_jk {wall_a:.3f} s vs tile "
+            f"{wall_tile:.3f} s ({by_a})")
+
+
+# ------------------------------------------------------------ phase 7
 def _scf_0029(ctx):
     """The converged direct RHF of phase full (run here when that phase
     was left out)."""
@@ -1326,7 +1574,7 @@ def _time_cd(ctx, mf, eng_b):
         f"{at.tile_accumulate_chunk.launches}")
 
 
-# ------------------------------------------------------------ phase 7
+# ------------------------------------------------------------ phase 8
 WATERS = """O 0 0 0.1174; H -0.757 0 -0.4696; H 0.757 0 -0.4696;
 O 8 0 0.1174; H 7.243 0 -0.4696; H 8.757 0 -0.4696"""
 NELEC_0029 = 152
@@ -1726,7 +1974,7 @@ def phase_dft(ctx):
             f"{wall:.1f} s; RKS path launches {ctx['launches_dft']}")
 
 
-# ------------------------------------------------------------ phase 8
+# ------------------------------------------------------------ phase 9
 # ECP data of the JAX package's tests/test_ecp.py: a model O ECP, an
 # s-only H ECP, and the Na 10-core ECP of the reference's own suite
 # (public GPU4PySCF test data; channels ul + S..G) with a Na valence basis
@@ -2197,7 +2445,7 @@ def phase_ecp(ctx):
             f"{wall:.1f} s")
 
 
-# ------------------------------------------------------------ phase 9
+# ----------------------------------------------------------- phase 10
 # the pair engine's small anchors: (atoms, basis, density seed)
 PAIR_ANCHORS = (("h2o/sto-3g", H2O, "sto-3g", 0),
                 ("o-h/6-31g", "O 0 0 0; H 0 0 0.96", "6-31g", 4))
@@ -2314,7 +2562,7 @@ def phase_pair(ctx):
 # --------------------------------------------------------------- main
 PHASES = (("build", phase_build), ("eri", phase_eri), ("accum", phase_accum),
           ("anchors", phase_anchors), ("full", phase_full),
-          ("modes", phase_modes), ("dft", phase_dft), ("ecp", phase_ecp),
+          ("engine", phase_engine), ("modes", phase_modes), ("dft", phase_dft), ("ecp", phase_ecp),
           ("pair", phase_pair))
 
 
@@ -2341,7 +2589,18 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     want = set(args.only.split(",")) if args.only else None
-    ctx = {}
+    cache_dir = tempfile.mkdtemp(prefix="jqc_smoke_cache_")
+    os.environ["JQC_CACHE_DIR"] = cache_dir
+    os.environ["JQC_PLAN_CACHE"] = "0"
+    try:
+        return _run(want, {"cache_dir": cache_dir})
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def _run(want, ctx):
+    import torch
+
     ok = True
     for name, fn in PHASES:
         if want is not None and name not in want and name != "build":

@@ -11,7 +11,9 @@ float64 tier; its Fock builds go through the same kernels.  Effective
 core potentials (mol/ecp.py, scf/ecp.py, ops/bessel.py) enter hcore as
 float64 PyTorch type-1/type-2 integrals, with their ip/ipip/gradient
 derivatives; an element missing from the basis data gets the generated
-fallback basis of mol/basis_gen.py.  Entry points
+fallback basis of mol/basis_gen.py.  Task plans and Schwarz bounds persist
+on disk across processes, and ``accum='auto'`` routes each class by a
+per-device autotune table (utils/).  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``, which runs the
 plain PyTorch versions of the kernels.
 """

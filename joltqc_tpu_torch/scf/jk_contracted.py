@@ -6,7 +6,9 @@ Port of ``joltqc_tpu/scf/jk_contracted.py``: ``_tables``, ``_q_raw`` /
 scatter and block branches), ``_espace`` / ``_efold``, ``_tile_chunk`` and
 the scatter and block branches of ``_class_scan_body`` (``_run_plan``),
 ``get_jk`` (one density or a stack, ``omega``, ``hermi``, ``bucketed``),
-``get_jk_incr`` and ``reset_incremental``.
+``get_jk_incr`` and ``reset_incremental``; the Schwarz-q and plan disk
+caches (``_ensure_q``, ``_build_plan_cached``, utils/plancache.py),
+``accum='auto'`` (utils/autotune.py) and ``profile`` / ``class_time``.
 
  - tasks (screened shell-quartet index quadruples) are built once on the
    host (scf/tasks.py, native/screen.cpp) and stay on the device;
@@ -31,16 +33,25 @@ the scatter and block branches of ``_class_scan_body`` (``_run_plan``),
        and added as integers, with no decode in between.  An entry whose
        chunks would need more than four block rows per task runs as
        scatter (``entry['accum']`` says which, the reference's rule);
+     * ``'auto'``: each class takes its mode and chunk from the device's
+       autotune table (utils/autotune.py); an untuned class runs as tile
+       on the card and as scatter elsewhere (the reference's rule, with
+       the card in place of the TPU).  Only ``'auto'`` reads the table's
+       chunks: the fixed modes keep the chunks below, so their launches do
+       not depend on a table;
  - the 8-fold symmetry is handled by unique tasks with power-of-two
    weights and one final P + P^T (P - P^T for the antisymmetric part of
    a non-symmetric density); the E-space is folded to AO space by the 0/1
    matrix R (vj = R^T E R).
 
-The JAX package's autotune table (``accum='auto'``), plan cache and q
-cache are queued (ROADMAP).  Its fused launches and pow2 chunk padding
-are not carried over, since the port has no compile step; the pad tasks
-the TPU needed for fixed chunk shapes are not made (a shorter last
-chunk).
+Plans and Schwarz q persist across processes (utils/plancache.py, with
+its environment variables): a plan is loaded when its key is on disk,
+else built and saved if the build took at least
+``JQC_PLAN_CACHE_MIN_SECS``; ``timing`` counts builds and loads apart.
+The reference's ``fuse_group`` (class scans fused into one compiled
+program) and its pow2 chunk padding are not carried over, since the port
+has no compile step; the pad tasks the TPU needed for fixed chunk shapes
+are not made (a shorter last chunk).
 """
 
 from __future__ import annotations
@@ -49,6 +60,9 @@ import time
 
 import numpy as np
 import torch
+
+from ..utils import plancache
+from ..utils.autotune import tuned_accum, tuned_chunk
 
 from ..mol.layout import BasisLayout
 from ..ops.accum import (
@@ -83,12 +97,18 @@ CHUNK_ELEMS = 1 << 24
 # nrows * nf * 24 bytes with nrows = G * S * S <= 4 * B rows and nf up to
 # 36 for (dd| streams and 225 for l = 4, stays within this many bytes
 BLOCK_BUF_BYTES = 256 << 20
-ACCUM_MODES = ("tile", "scatter", "block")
+MODES = ("tile", "scatter", "block")  # the modes a plan entry runs in
+ACCUM_MODES = MODES + ("auto",)
 _CENTER = {"a": 0, "b": 1, "c": 2, "d": 3}
 
 
 def _nf(l):
     return len(cart_components(l))
+
+
+def _add(counts, **kv):
+    for k, v in kv.items():
+        counts[k] = counts.get(k, 0) + v
 
 
 def tile_entry(classes, tile_w, ls, nprims, tier, cls_idx, idx, w, bound):
@@ -254,6 +274,10 @@ class JKEngine:
         # and plan builds per cache key (("full" | bucket, omega))
         self.timing: dict = {}
         self.plan_builds: dict = {}
+        # profile=True: the card is synchronised after each entry, and the
+        # entry's wall seconds add to class_time[(ls, nprims, tier)]
+        self.profile = False
+        self.class_time: dict = {}
 
     # ------------------------------------------------------------- espace
     def _espace(self):
@@ -346,15 +370,29 @@ class JKEngine:
         nfel = int(np.prod([_nf(l) for l in ls]))
         return max(1, min(1 << 21, CHUNK_ELEMS // nfel))
 
-    @classmethod
-    def _block_chunk(cls, ls, ntasks):
-        """Tasks per launch of a block entry: ``_chunk`` bounded by the
-        block buffer (4 * B rows of the widest stream's nf, 24 bytes per
-        element, within BLOCK_BUF_BYTES), and, as in the reference, by
-        the task count rounded up to a power of two (at least 64), so
-        that ``G*S*S <= 4*B`` compares block rows with real tasks."""
+    def _tuned_chunk(self, ls, nprims, tier, ntasks):
+        """An ``'auto'`` engine's chunk from the autotune table, clamped
+        as the reference clamps it (at most the task count rounded up to a
+        power of two, at least 64); None when the engine is not ``'auto'``
+        or the class is untuned."""
+        if self.accum != "auto":
+            return None
+        b = tuned_chunk(ls, nprims, tier, self.device)
+        if b is None:
+            return None
+        return int(min(b, 1 << int(np.ceil(np.log2(max(ntasks, 64))))))
+
+    def _block_chunk(self, ls, ntasks, nprims=None, tier=None):
+        """Tasks per launch of a block entry: the tuned chunk or
+        ``_chunk``, bounded by the block buffer (4 * B rows of the widest
+        stream's nf, 24 bytes per element, within BLOCK_BUF_BYTES), and,
+        as in the reference, by the task count rounded up to a power of
+        two (at least 64), so that ``G*S*S <= 4*B`` compares block rows
+        with real tasks."""
         nf = sorted(_nf(l) for l in ls)
-        b = min(cls._chunk(ls), BLOCK_BUF_BYTES // (4 * 24 * nf[-1] * nf[-2]))
+        b = min(self._tuned_chunk(ls, nprims, tier, ntasks)
+                or self._chunk(ls),
+                BLOCK_BUF_BYTES // (4 * 24 * nf[-1] * nf[-2]))
         return max(1, min(b, 1 << int(np.ceil(np.log2(max(ntasks, 64))))))
 
     # ------------------------------------------------------------ schwarz
@@ -384,15 +422,36 @@ class JKEngine:
         """Pair Schwarz bounds, pairs sorted by descending bound.  The
         per-omega variants share the omega = 0 sort order: the
         erf-attenuated (ab|ab)_omega is bounded by the full Coulomb value,
-        so the omega = 0 candidate generation is a superset."""
+        so the omega = 0 candidate generation is a superset.
+
+        Disk cache (utils/plancache.py::q_path): q is saved with the
+        stable ``argsort(-q)`` order, which a load re-applies to i_loc,
+        j_loc and diag, so the pairs end in ``sort_pairs_by_q``'s order;
+        the omega variants are stored aligned to that sorted order."""
         omega = float(omega or 0.0)
         if pc.q_log is None:
-            pc.q_log = self._q_raw(pc)
-            sort_pairs_by_q(pc)
+            path = plancache.q_path(self, pc, 0.0)
+            got = plancache.load_arrays(path, ("q", "order"), pc.npair)
+            if got is not None:
+                q, order = got
+                pc.i_loc, pc.j_loc = pc.i_loc[order], pc.j_loc[order]
+                pc.diag = pc.diag[order]
+                pc.q_log = q
+            else:
+                pc.q_log = self._q_raw(pc)
+                order = np.argsort(-pc.q_log, kind="stable")
+                sort_pairs_by_q(pc)
+                plancache.save_arrays(path, q=pc.q_log, order=order)
         if omega == 0.0:
             return pc.q_log
         if omega not in pc.q_omega:
-            pc.q_omega[omega] = self._q_raw(pc, omega)
+            path = plancache.q_path(self, pc, omega)
+            got = plancache.load_arrays(path, ("q",), pc.npair)
+            if got is not None:
+                pc.q_omega[omega] = got[0]
+            else:
+                pc.q_omega[omega] = self._q_raw(pc, omega)
+                plancache.save_arrays(path, q=pc.q_omega[omega])
         return pc.q_omega[omega]
 
     # --------------------------------------------------------------- plan
@@ -418,7 +477,7 @@ class JKEngine:
         log64_abs = float(np.log(self.cutoff_fp64))
         refine = dm_cond_log is not None or omega != 0.0
         stats = dict(ntasks=0, n64=0, cand=0, cand64=0,
-                     by_accum=dict.fromkeys(ACCUM_MODES, 0))
+                     by_accum=dict.fromkeys(MODES, 0))
         plan = []
         for p1i in range(len(self.pair_classes)):
             p1 = self.pair_classes[p1i]
@@ -515,15 +574,28 @@ class JKEngine:
         self.plan_stats = stats
         return plan
 
+    def _entry_mode(self, ls, nprims, tier):
+        """The accumulation mode of one class: the engine's, or for
+        ``'auto'`` the autotune table's, else tile on the card and scatter
+        elsewhere."""
+        if self.accum != "auto":
+            return self.accum
+        tuned = tuned_accum(ls, nprims, tier, self.device)
+        if tuned in MODES:
+            return tuned
+        return "tile" if self.device.type == "cuda" else "scatter"
+
     def _entry(self, ls, nprims, tier, cls_idx, idx, w, bound):
-        """One plan entry in the engine's accumulation mode."""
-        if self.accum == "tile":
+        """One plan entry in its class's accumulation mode."""
+        mode = self._entry_mode(ls, nprims, tier)
+        if mode == "tile":
             return tile_entry(self.classes, self.tile_w, ls, nprims, tier,
                               cls_idx, idx, w, bound)
-        if self.accum == "block":
+        if mode == "block":
             return block_entry(self.classes, self.tile,
-                               self._block_chunk(ls, idx.shape[1]), ls,
-                               nprims, tier, cls_idx, idx, w, bound)
+                               self._block_chunk(ls, idx.shape[1], nprims,
+                                                 tier),
+                               ls, nprims, tier, cls_idx, idx, w, bound)
         return flat_entry(ls, nprims, tier, cls_idx, idx, w, bound)
 
     def build_plan(self, dm_mol, omega=0.0):
@@ -540,14 +612,45 @@ class JKEngine:
         return self._plan
 
     def _timed_build(self, key, logdm, Dm, okey):
+        """``_build_plan_cached`` with its counts in ``timing``:
+        plan_builds / plan_build_s count builds only, plan_loads /
+        plan_load_s loads from disk (the upload to the device included);
+        ``plan_builds`` counts builds per cache key."""
+        t0 = time.perf_counter()
+        plan, build_s = self._build_plan_cached(logdm, Dm, okey)
+        if build_s is None:
+            _add(self.timing, plan_load_s=time.perf_counter() - t0,
+                 plan_loads=1)
+        else:
+            _add(self.timing, plan_build_s=build_s, plan_builds=1)
+            self.plan_builds[key] = self.plan_builds.get(key, 0) + 1
+        return plan
+
+    def _build_plan_cached(self, logdm, Dm, okey):
+        """(plan, seconds of its build, None when loaded): the plan from
+        disk when its key is there (every entry uploaded to the device
+        here), else ``_build_plan``, saved when the build took at least
+        ``JQC_PLAN_CACHE_MIN_SECS`` (plan_saves / plan_save_s /
+        plan_save_bytes in ``timing``).  The environment is read at each
+        call, so a caller can switch the cache between calls."""
+        key = plancache.plan_key(self, logdm, Dm, okey)
+        loaded = plancache.load_plan(key)
+        if loaded is not None:
+            plan, self.plan_stats = loaded
+            for entry in plan:
+                self._entry_dev(entry)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return plan, None
         t0 = time.perf_counter()
         plan = self._build_plan(logdm, Dm, okey)
-        tm = self.timing
-        tm["plan_build_s"] = (tm.get("plan_build_s", 0.0)
-                              + time.perf_counter() - t0)
-        tm["plan_builds"] = tm.get("plan_builds", 0) + 1
-        self.plan_builds[key] = self.plan_builds.get(key, 0) + 1
-        return plan
+        secs = time.perf_counter() - t0
+        if key is not None and secs >= plancache.min_secs():
+            t1 = time.perf_counter()
+            nbytes = plancache.save_plan(key, plan, self.plan_stats)
+            _add(self.timing, plan_save_s=time.perf_counter() - t1,
+                 plan_saves=int(nbytes > 0), plan_save_bytes=nbytes)
+        return plan, secs
 
     def _ensure_full_plan(self, D, logdm, okey=0.0):
         """The full-density plan of this omega, rebuilt only when some
@@ -578,7 +681,8 @@ class JKEngine:
         """Device-resident task arrays of one entry (uploaded once, after
         a host check that every index lies in its class table): idx (4, n)
         int32, w (n,) float32 and, for a block entry, gslot (n,) and tb4
-        (nchunk, G, 4) int32."""
+        (nchunk, G, 4) int32; arrays a plan file narrowed
+        (plancache._narrow) are widened back on the way."""
         dev = entry.get("_dev")
         if dev is None:
             idx = entry["idx"]
@@ -589,33 +693,39 @@ class JKEngine:
                                      f"of class {ci}")
 
             def up(a, dt):
-                return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                                       device=self.device)
+                # a writable C-ordered copy of a read-only or narrowed
+                # array (a memory-mapped plan file), else the array itself
+                a = np.require(a, dt, ("C", "W"))
+                return torch.from_numpy(a).to(self.device)
 
-            dev = (up(idx, torch.int32), up(entry["w"], torch.float32))
+            dev = (up(idx, np.int32), up(entry["w"], np.float32))
             if entry["accum"] == "block":
                 nchunk = -(-idx.shape[1] // entry["chunk"])
                 if (entry["tb4"].shape[0] != nchunk
                         or entry["gslot"].shape != (idx.shape[1],)):
                     raise ValueError(f"plan entry {entry['ls']}: gslot/tb4 "
                                      "do not match its chunks")
-                dev += (up(entry["gslot"], torch.int32),
-                        up(entry["tb4"], torch.int32))
+                dev += (up(entry["gslot"], np.int32),
+                        up(entry["tb4"], np.int32))
             entry["_dev"] = dev
         return dev
 
     # ---------------------------------------------------------------- jk
     def _entry_chunk(self, entry):
-        """Tasks per launch of an entry."""
-        return entry.get("chunk") or self._chunk(entry["ls"])
+        """Tasks per launch of an entry: a block entry's own, else the
+        tuned chunk of an ``'auto'`` engine, else ``_chunk``."""
+        return (entry.get("chunk")
+                or self._tuned_chunk(entry["ls"], entry["nprims"],
+                                     entry["tier"], entry["ntasks"])
+                or self._chunk(entry["ls"]))
 
-    def _chunk_eri(self, entry, s0, omega=0.0):
-        """One launch of an entry, tasks s0 .. s0 + chunk: the class
-        tables, the four index rows, the weights and the ERI blocks
-        (kernel A on the card)."""
+    def _chunk_eri(self, entry, s0, omega=0.0, chunk=None):
+        """One launch of an entry, tasks s0 .. s0 + chunk (the entry's
+        own chunk when None): the class tables, the four index rows, the
+        weights and the ERI blocks (kernel A on the card)."""
         tbls = [self._tables(entry["tier"])[k] for k in entry["cls_idx"]]
         idx_all, w_all = self._entry_dev(entry)[:2]
-        s1 = s0 + self._entry_chunk(entry)
+        s1 = s0 + (chunk or self._entry_chunk(entry))
         idx = tuple(idx_all[k, s0:s1] for k in range(4))
         G = contracted_eri_batch(entry["tier"], entry["ls"], entry["nprims"],
                                  self._quartet(tbls), omega, idx=idx)
@@ -666,6 +776,72 @@ class JKEngine:
         return torch.where(base[..., None, None] >= nao * nao, nao * nao,
                            idx).reshape(-1)
 
+    def _accumulators(self, n_dm, with_j, with_k, has_tile, has_flat):
+        """(EJ, EK, AJ, AK) int64 limb accumulators: extended (n_dm, E, E,
+        NLIMB) ones for tile entries, flat (n_dm*nao*nao + 1, NLIMB) ones
+        with a spill row for the others; None where unused."""
+        _, E = self._espace()
+        flat = n_dm * self.nao * self.nao + 1
+
+        def zeros(shape, on):
+            return (torch.zeros(shape, dtype=torch.int64, device=self.device)
+                    if on else None)
+
+        return (zeros((n_dm, E, E, NLIMB), with_j and has_tile),
+                zeros((n_dm, E, E, NLIMB), with_k and has_tile),
+                zeros((flat, NLIMB), with_j and has_flat),
+                zeros((flat, NLIMB), with_k and has_flat))
+
+    def _run_entry(self, entry, mode, dm_t, acc, e, with_j=True,
+                   with_k=True, omega=0.0, chunk=None, stop=None):
+        """Accumulate one plan entry into acc = (EJ, EK, AJ, AK) in mode
+        ``mode`` at limb exponent e: its tasks up to ``stop`` (all when
+        None) in launches of ``chunk`` tasks (the entry's own when None;
+        a block entry always runs at its own).  dm_t: (n_dm, nao, nao) in
+        the entry's tier dtype."""
+        EJ, EK, AJ, AK = acc
+        nao, ls = self.nao, entry["ls"]
+        n_dm = dm_t.shape[0]
+        streams = [s for s, st in enumerate(STREAMS)
+                   if (st[0] == "j" and with_j) or (st[0] == "k" and with_k)]
+        B = chunk or self._entry_chunk(entry)
+        n = entry["ntasks"] if stop is None else stop
+        for s0 in range(0, n, B):
+            tbls, idx, w, G = self._chunk_eri(entry, s0, omega, B)
+            if mode == "tile":
+                for s in streams:
+                    kind, xi, yi, ui, vi, _ = STREAMS[s]
+                    tgt = EJ if kind == "j" else EK
+                    for d in range(n_dm):
+                        contract_tile(
+                            G, self._stream_tables(ls, s), dm_t[d], nao,
+                            (idx[ui], tbls[ui]["ao"]),
+                            (idx[vi], tbls[vi]["ao"]),
+                            (idx[xi], tbls[xi]["erow"]),
+                            (idx[yi], tbls[yi]["erow"]),
+                            w, tgt[d], e,
+                        )
+                continue
+            # one ERI evaluation, n_dm contractions
+            for d in range(n_dm):
+                js, ks = self._chunk_streams(
+                    entry, tbls, idx, w, G, dm_t.reshape(-1), with_j,
+                    with_k, off=d * nao * nao)
+                for a, strs in ((AJ, js), (AK, ks)):
+                    for xy, vals, vidx in strs:
+                        if mode == "scatter":
+                            add_limbs_(a, vals, vidx, e)
+                            continue
+                        # block: segment-sum over the chunk's block
+                        # rows, then scatter those rows only
+                        rowkey, tb4c = self._block_keys(entry, s0, idx, xy)
+                        rows, _ = block_accumulate(
+                            vals, rowkey, entry["nrows"], entry["bound"],
+                            e=e)
+                        a.index_add_(
+                            0, self._block_rows_index(tb4c, tbls, ls, xy),
+                            rows.view(-1, NLIMB))
+
     def _run_plan(self, dm_int, with_j, with_k, omega=0.0, bucketed=False,
                   cond=None, plan=None):
         """Folded accumulators (vj, vk) as float64 numpy partials P of
@@ -696,59 +872,19 @@ class JKEngine:
         # block reductions are single-dm: a stack runs them as scatter
         modes = ["scatter" if n_dm > 1 and x["accum"] == "block"
                  else x["accum"] for x in plan]
-        has_tile = "tile" in modes
-        has_flat = any(m != "tile" for m in modes)
-        offs, E = self._espace()
-
-        def zeros(shape, on):
-            return (torch.zeros(shape, dtype=torch.int64, device=dev)
-                    if on else None)
-
-        EJ = zeros((n_dm, E, E, NLIMB), with_j and has_tile)
-        EK = zeros((n_dm, E, E, NLIMB), with_k and has_tile)
-        # flat accumulators, one spill row at the end
-        AJ = zeros((n_dm * nao * nao + 1, NLIMB), with_j and has_flat)
-        AK = zeros((n_dm * nao * nao + 1, NLIMB), with_k and has_flat)
-        streams = [s for s, st in enumerate(STREAMS)
-                   if (st[0] == "j" and with_j) or (st[0] == "k" and with_k)]
+        acc = self._accumulators(n_dm, with_j, with_k, "tile" in modes,
+                                 any(m != "tile" for m in modes))
         for entry, mode in zip(plan, modes):
-            tier, ls = entry["tier"], entry["ls"]
-            dm_t = dms[tier_dtype(tier)]
-            for s0 in range(0, entry["idx"].shape[1], self._entry_chunk(entry)):
-                tbls, idx, w, G = self._chunk_eri(entry, s0, okey)
-                if mode == "tile":
-                    for s in streams:
-                        kind, xi, yi, ui, vi, _ = STREAMS[s]
-                        tgt = EJ if kind == "j" else EK
-                        for d in range(n_dm):
-                            contract_tile(
-                                G, self._stream_tables(ls, s), dm_t[d], nao,
-                                (idx[ui], tbls[ui]["ao"]),
-                                (idx[vi], tbls[vi]["ao"]),
-                                (idx[xi], tbls[xi]["erow"]),
-                                (idx[yi], tbls[yi]["erow"]),
-                                w, tgt[d], e,
-                            )
-                    continue
-                # one ERI evaluation, n_dm contractions
-                for d in range(n_dm):
-                    js, ks = self._chunk_streams(
-                        entry, tbls, idx, w, G, dm_t.reshape(-1), with_j,
-                        with_k, off=d * nao * nao)
-                    for acc, strs in ((AJ, js), (AK, ks)):
-                        for xy, vals, vidx in strs:
-                            if mode == "scatter":
-                                add_limbs_(acc, vals, vidx, e)
-                                continue
-                            # block: segment-sum over the chunk's block
-                            # rows, then scatter those rows only
-                            rowkey, tb4c = self._block_keys(entry, s0, idx, xy)
-                            rows, _ = block_accumulate(
-                                vals, rowkey, entry["nrows"], entry["bound"],
-                                e=e)
-                            acc.index_add_(
-                                0, self._block_rows_index(tb4c, tbls, ls, xy),
-                                rows.view(-1, NLIMB))
+            t0 = time.perf_counter()
+            self._run_entry(entry, mode, dms[tier_dtype(entry["tier"])], acc,
+                            e, with_j, with_k, okey)
+            if self.profile:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                key = (entry["ls"], entry["nprims"], entry["tier"])
+                self.class_time[key] = (self.class_time.get(key, 0.0)
+                                        + time.perf_counter() - t0)
+        EJ, EK, AJ, AK = acc
         R = self._efold()
         shape = (n_dm, nao, nao) if stacked else (nao, nao)
 

@@ -314,3 +314,57 @@ def test_pair_engine_refuses_tf32(cuda):
             eng.get_k(dm)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# ------------------------------------------ plan cache and accum='auto'
+def test_plan_cache_warm_get_jk_on_card(cuda, tmp_path, monkeypatch):
+    """A second engine on the card loads the first one's plan and q from
+    disk (no build, no kernel A launch for the Schwarz q) and gives the
+    same J/K bits (H2O/6-31g)."""
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.scf import JKEngine
+    from joltqc_tpu_torch.utils import autotune
+
+    monkeypatch.setenv("JQC_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("JQC_PLAN_CACHE", "1")
+    monkeypatch.setenv("JQC_PLAN_CACHE_MIN_SECS", "0")
+    monkeypatch.setattr(autotune, "_TABLE", None)
+    mol = Molecule.from_atom_string(PAIR_H2O, basis="6-31g")
+    a = np.random.default_rng(0).uniform(-1, 1, (mol.nao, mol.nao))
+    dm = a + a.T
+    cold = JKEngine(BasisLayout(mol), device=cuda)
+    jc = cold.get_jk(dm)
+    warm = JKEngine(BasisLayout(mol), device=cuda)
+    for pc in warm.pair_classes:
+        n0 = eri_chunk.launches
+        warm._ensure_q(pc)
+        assert eri_chunk.launches == n0
+    jw = warm.get_jk(dm)
+    assert warm.timing["plan_loads"] == 1 and "plan_builds" not in warm.timing
+    assert np.array_equal(jc[0], jw[0]) and np.array_equal(jc[1], jw[1])
+
+
+def test_auto_against_tile_on_card(cuda, tmp_path, monkeypatch):
+    """accum='auto' on the card's committed table (untuned classes run as
+    tile): bit-identical to the tile engine where every class runs as
+    tile, else within 1e-9 of max(|J|, 1) (H2O/6-31g)."""
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.scf import JKEngine
+    from joltqc_tpu_torch.utils import autotune
+
+    monkeypatch.setenv("JQC_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(autotune, "_TABLE", None)
+    mol = Molecule.from_atom_string(PAIR_H2O, basis="6-31g")
+    a = np.random.default_rng(0).uniform(-1, 1, (mol.nao, mol.nao))
+    dm = a + a.T
+    jt = JKEngine(BasisLayout(mol), device=cuda).get_jk(dm)
+    auto = JKEngine(BasisLayout(mol), device=cuda, accum="auto")
+    ja = auto.get_jk(dm)
+    if auto.plan_stats["by_accum"]["tile"] == auto.plan_stats["ntasks"]:
+        assert np.array_equal(ja[0], jt[0]) and np.array_equal(ja[1], jt[1])
+    else:
+        scale = max(np.abs(jt[0]).max(), 1.0)
+        assert max(np.abs(ja[0] - jt[0]).max(),
+                   np.abs(ja[1] - jt[1]).max()) < 1e-9 * scale

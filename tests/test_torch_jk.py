@@ -78,7 +78,8 @@ def _task_set(entries, tier_key):
             idx = np.stack([np.asarray(t).reshape(-1) for t in e["tasks"][:4]])
             w = np.asarray(e["tasks"][4]).reshape(-1)
         keep = w != 0
-        idx, w = idx[:, keep], w[keep]
+        # int64: a plan loaded from a disk cache holds narrowed indices
+        idx, w = np.asarray(idx, np.int64)[:, keep], w[keep]
         ci = tuple(e["cls_idx"])
         bra = idx[0] * 100000 + idx[1]
         ket = idx[2] * 100000 + idx[3]

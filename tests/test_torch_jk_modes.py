@@ -156,7 +156,7 @@ def test_block_entry_routing_rule():
 def test_unknown_accum_raises(h2o):
     mol = h2o[0]
     with pytest.raises(ValueError, match="accum"):
-        JKEngine(BasisLayout(mol), device="cpu", accum="auto")
+        JKEngine(BasisLayout(mol), device="cpu", accum="fused")
 
 
 def test_full_plan_cache_is_keyed_by_omega(h2o):
@@ -213,7 +213,8 @@ def _task_set(entries):
             idx = np.stack([np.asarray(t).reshape(-1) for t in e["tasks"][:4]])
             w = np.asarray(e["tasks"][4]).reshape(-1)
         keep = w != 0
-        idx, w = idx[:, keep], w[keep]
+        # int64: a plan loaded from a disk cache holds narrowed indices
+        idx, w = np.asarray(idx, np.int64)[:, keep], w[keep]
         ci = tuple(e["cls_idx"])
         bra = idx[0] * 100000 + idx[1]
         ket = idx[2] * 100000 + idx[3]
