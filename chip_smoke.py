@@ -95,15 +95,32 @@ Phases, each printed with its result and wall time on its own line:
                 each call's wall (first and warm), device time,
                 launches, busy share, tasks and primitive quartets per
                 tier, and kernel A's launches for the Schwarz q;
- 11. a "kernels" JSON line; the last line is the device JSON.
+ 11. multi      the sharded Fock build (JKEngine(group=...)) over gloo
+                ranks that share the card: on phase full's converged 0029
+                density (saved to the run's temporary directory), tile
+                get_jk over 2 and 4 spawned ranks, every rank's J/K
+                bit-identical to one rank's, the ranks' tasks summing to
+                the plan's, per rank kernel A and B launches, get_jk wall
+                (first and warm), the limb reduction's seconds and bytes;
+                then dryrun_multichip(2) and (4) ((H2O)4/6-31g, block,
+                bit-identical to one rank) with their gaps to the JAX
+                package's single-chip result (1e-6);
+ 12. api        the PySCF adapter's patches (pyscf._apply_patches) on
+                stub RHF, RKS (b3lyp) and ECP objects on the card against
+                the same patches on the CPU: get_j/get_k/get_jk (hermi 1
+                and 0, MODE_TOL['tile']), the incremental veff against the
+                direct one, RKS Exc (1e-7) and veff, the ECPscalar routing
+                (1e-12 of max(1, |V|)); entry()'s step (kernels A and B)
+                on the card against its CPU run (ACC_TOL);
+ 13. a "kernels" JSON line; the last line is the device JSON.
 The plan and q caches (joltqc_tpu_torch/utils/plancache.py) live in a
 fresh temporary JQC_CACHE_DIR, removed at exit, and are off
 (JQC_PLAN_CACHE=0) in every phase but engine, so that no phase loads what
 an earlier phase or an earlier run wrote.
 Any failed phase makes the script exit nonzero.  Options: --only PHASES
 (comma list, for debugging: build,eri,accum,anchors,full,engine,modes,
-dft,ecp,pair; modes and pair run the 0029 SCF themselves when full is
-left out).
+dft,ecp,pair,multi,api; modes, pair and multi run the 0029 SCF themselves
+when full is left out).
 """
 
 from __future__ import annotations
@@ -2559,11 +2576,254 @@ def phase_pair(ctx):
             f"{eng.last_run['get_k']['wall_s']:.2f} s (last calls)")
 
 
+# ----------------------------------------------------------- phase 11
+MULTI_RANKS = (2, 4)      # gloo ranks sharing the card in phase multi
+MULTI_TIMEOUT_S = 240.0   # one spawn of ranks, start-up to exit
+
+
+def _multi_rank(rank, world, tmp):
+    """One spawned gloo rank of phase multi (spawned: this file is its
+    main module): the sharded tile get_jk at 0029/6-31g* on phase full's
+    converged density, twice, with kernels A and B counted per call (set
+    to 0 just before, read just after); J/K and counts to tmp."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.ops.accum_tile import accum_tile_chunk as acc_k
+    from joltqc_tpu_torch.ops.eri import eri_chunk as eri_k
+    from joltqc_tpu_torch.parallel import sharded_jk_engine
+
+    import datetime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(tmp, f"rdzv{world}"),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+    try:
+        dm = np.load(os.path.join(tmp, "dm_0029.npy"))
+        mol = Molecule.from_xyz_file(XYZ_0029, basis="6-31g*")
+        eng = sharded_jk_engine(BasisLayout(mol), dist.group.WORLD)
+        out, calls = {}, []
+        for call in ("first", "warm"):
+            eri_k.launches = eri_k.generic_launches = acc_k.launches = 0
+            r0 = dict(eng.timing)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vj, vk = eng.get_jk(dm)
+            torch.cuda.synchronize()
+            calls.append([time.perf_counter() - t0,
+                          eng.timing["reduce_s"] - r0.get("reduce_s", 0.0),
+                          eng.timing["reduce_bytes"]
+                          - r0.get("reduce_bytes", 0), eri_k.launches,
+                          acc_k.launches, eri_k.generic_launches])
+            out[f"{call}_j"], out[f"{call}_k"] = vj, vk
+        np.savez(os.path.join(tmp, f"multi{world}_rank{rank}.npz"),
+                 calls=np.array(calls), rank_tasks=eng.plan_stats[
+                     "rank_tasks"], ntasks=eng.plan_stats["ntasks"],
+                 device=str(eng.device), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multi(ctx):
+    """The sharded Fock build (JKEngine(group=...)) on the card: 0029
+    tile get_jk over 2 and 4 gloo ranks sharing cuda:0, bit-identical to
+    one rank; then dryrun_multichip(2) and (4) against the JAX package's
+    single-chip (H2O)4/6-31g result."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.entry import dryrun_multichip
+    from joltqc_tpu_torch.parallel import spawn_ranks
+    from joltqc_tpu_torch.scf import JKEngine
+
+    mf = _scf_0029(ctx)
+    dm = mf.dm
+    tmp = os.path.join(ctx["cache_dir"], "multi")
+    os.makedirs(tmp, exist_ok=True)
+    np.save(os.path.join(tmp, "dm_0029.npy"), dm)
+    one = JKEngine(mf.layout)
+    ref, wall_1 = _timed_jk(one, dm)
+    ref_w, wall_1w = _timed_jk(one, dm)
+    check(_same_jk(ref, ref_w), "multi: one-rank get_jk repeat differs")
+    ntasks = one.plan_stats["ntasks"]
+    say(f"  multi one rank: 0029 tile get_jk first {wall_1:.3f} s, warm "
+        f"{wall_1w:.3f} s, {ntasks} tasks")
+    launches = {"eri": 0, "accum_tile": 0, "accum_block": 0}
+    walls = {}
+    for R in MULTI_RANKS:
+        spawn_s = spawn_ranks(_multi_rank, R, (tmp,),
+                              timeout=MULTI_TIMEOUT_S)
+        ranks = [dict(np.load(os.path.join(tmp, f"multi{R}_rank{r}.npz")))
+                 for r in range(R)]
+        tasks = [int(x["rank_tasks"]) for x in ranks]
+        check(sum(tasks) == ntasks and all(int(x["ntasks"]) == ntasks
+                                           for x in ranks),
+              f"multi R={R}: rank tasks {tasks} do not sum to {ntasks}")
+        for r, x in enumerate(ranks):
+            for call in ("first", "warm"):
+                check(_same_jk((x[f"{call}_j"], x[f"{call}_k"]), ref),
+                      f"multi R={R} rank {r} {call}: J/K differ from one "
+                      "rank")
+            (w1, _, _, a1, b1, g1), (w2, rs, rb, a2, b2, g2) = x["calls"]
+            check(a2 > 0 and b2 > 0 and g1 == g2 == 0,
+                  f"multi R={R} rank {r}: kernel A {a2}, B {b2}, generic "
+                  f"{g1 + g2} launches")
+            launches["eri"] += int(a1 + a2)
+            launches["accum_tile"] += int(b1 + b2)
+            say(f"  multi R={R} rank {r} ({x['device']}): {tasks[r]} tasks; "
+                f"get_jk first {w1:.3f} s, warm {w2:.3f} s; reduce "
+                f"{rs * 1e3:.1f} ms of {int(rb)} B; launches per warm call "
+                f"A {int(a2)} B {int(b2)} (first call A {int(a1)} B "
+                f"{int(b1)})")
+        walls[R] = max(float(x["calls"][1][0]) for x in ranks)
+        say(f"  multi R={R}: {R} ranks bit-identical to one rank (first "
+            f"and warm), tasks per rank {tasks}; spawn to exit "
+            f"{spawn_s:.1f} s")
+    dry = {}
+    for R in MULTI_RANKS:
+        got = dryrun_multichip(R)
+        dry[R] = got
+        launches["eri"] += sum(got["eri_launches"])
+        launches["accum_block"] += sum(got["block_launches"])
+        check(min(got["block_launches"]) > 0 and min(got["eri_launches"]) > 0,
+              f"dryrun R={R}: a rank launched no kernel A or D")
+        say(f"  multi dryrun R={R}: |dJ|, |dK| vs the JAX npz "
+            f"{got['gap_j']:.3e}, {got['gap_k']:.3e} (tol 1e-6); tasks per "
+            f"rank {got['rank_tasks']}; get_jk per rank "
+            + ", ".join(f"{w:.3f}" for w in got["wall_s"]) + " s; reduce "
+            + ", ".join(f"{w * 1e3:.1f}" for w in got["reduce_s"])
+            + f" ms of {got['reduce_bytes']} B; launches A "
+            f"{got['eri_launches']} D {got['block_launches']}")
+    for k, row in (("eri", "kern_a"), ("accum_tile", "kern_b"),
+                   ("accum_block", "kern_d")):
+        if row in ctx:  # the kernels line counts this phase's runs too
+            ctx[row]["launches"] += launches[k]
+    torch.cuda.synchronize()
+    return (f"0029 tile get_jk bit-identical on {list(MULTI_RANKS)} ranks "
+            f"(warm {', '.join(f'{walls[R]:.3f}' for R in MULTI_RANKS)} s "
+            f"vs one rank {wall_1w:.3f} s); dryrun bit-identical, JAX gap "
+            + ", ".join(f"{max(d['gap_j'], d['gap_k']):.1e}"
+                        for d in dry.values()))
+
+
+# ----------------------------------------------------------- phase 12
+def phase_api(ctx):
+    """The PySCF adapter's patches (joltqc_tpu_torch.pyscf._apply_patches)
+    on stub RHF, RKS (b3lyp) and ECP objects on the card against the same
+    patches on the CPU, and entry()'s step on the card against its CPU
+    run."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.entry import entry
+    from joltqc_tpu_torch.ops.accum import limbs_to_f64
+    from joltqc_tpu_torch.ops.accum_tile import accum_tile_chunk as acc_k
+    from joltqc_tpu_torch.ops.eri import eri_chunk as eri_k
+    from joltqc_tpu_torch.pyscf import _apply_patches
+    from joltqc_tpu_torch.pyscf.standin import standin_mf
+
+    def stub(**kw):
+        """A stand-in RHF / RKS on H2O/6-31g (sto-3g with the ECP)."""
+        basis = "sto-3g" if kw.get("ecp") else "6-31g"
+        return standin_mf(basis, direct_scf=True, n_rad=30, n_theta=10,
+                          **kw)
+
+    out = []
+    eri_k.launches = acc_k.launches = 0
+    # RHF: get_j / get_k / get_jk (hermi 1 and 0), incremental veff
+    mfs = {dev: _apply_patches(stub(), device=dev)
+           for dev in ("cuda", "cpu")}
+    n = mfs["cpu"].mol.nao
+    rng = np.random.default_rng(11)
+    a = rng.uniform(-0.5, 0.5, (n, n))
+    dm0 = a + a.T
+    dm1 = dm0 + 0.02 * np.eye(n)
+    res = {}
+    for dev, mf in mfs.items():
+        res[dev] = [mf.get_j(mf.mol, dm0, 1), mf.get_k(mf.mol, dm0, 1),
+                    *mf.get_jk(mf.mol, dm0, 1), *mf.get_jk(mf.mol, a, 0)]
+    scale = max(1.0, float(np.abs(res["cpu"][0]).max()))
+    d = max(float(np.abs(x - y).max())
+            for x, y in zip(res["cuda"], res["cpu"])) / scale
+    check(d < MODE_TOL["tile"], f"api RHF: card vs CPU {d:.2e}")
+    check(np.array_equal(res["cuda"][0], res["cuda"][2])
+          and np.array_equal(res["cuda"][1], res["cuda"][3]),
+          "api RHF: get_j/get_k differ from get_jk on the card")
+    mf = mfs["cuda"]
+    v0 = mf.get_veff(mf.mol, dm0)
+    incr = mf.get_veff(mf.mol, dm1, dm0, v0, 1)
+    vj1, vk1 = mf.get_jk(mf.mol, dm1, 1)
+    d_inc = float(np.abs(incr - (vj1 - 0.5 * vk1)).max())
+    check(d_inc < 1e-10, f"api RHF: incremental veff off by {d_inc:.2e}")
+    out.append(f"RHF get_j/get_k/get_jk (hermi 1, 0) card vs CPU "
+               f"{d:.1e} of max(|J|, 1) (tol {MODE_TOL['tile']:g}); "
+               f"incremental veff vs direct {d_inc:.1e}")
+    # RKS b3lyp: tags, incremental veff, Exc against the CPU adapter
+    rks = {dev: _apply_patches(stub(xc="b3lyp"), device=dev)
+           for dev in ("cuda", "cpu")}
+    for mf in rks.values():
+        mf.grids.build()  # the port's default grid (host): one on both
+    vks = {dev: mf.get_veff(mf.mol, dm0) for dev, mf in rks.items()}
+    d_exc = abs(vks["cuda"].exc - vks["cpu"].exc)
+    d_v = float(np.abs(np.asarray(vks["cuda"]) - np.asarray(vks["cpu"]))
+                .max())
+    mf = rks["cuda"]
+    v1i = mf.get_veff(mf.mol, dm1, dm0, vks["cuda"], 1)
+    v1d = mf.get_veff(mf.mol, dm1)
+    d_rinc = float(np.abs(np.asarray(v1i) - np.asarray(v1d)).max())
+    check(all(getattr(vks["cuda"], t) is not None
+              for t in ("ecoul", "exc", "vj", "vk")), "api RKS: tags")
+    check(d_exc < 1e-7 and d_v < 1e-6, f"api RKS: card vs CPU Exc "
+          f"{d_exc:.2e}, veff {d_v:.2e}")
+    check(d_rinc < 1e-8, f"api RKS: incremental veff off by {d_rinc:.2e}")
+    out.append(f"RKS b3lyp Exc card vs CPU {d_exc:.1e} Eh (tol 1e-7), veff "
+               f"{d_v:.1e} (tol 1e-6), incremental vs direct {d_rinc:.1e}")
+    # ECP: intor('ECPscalar') routed to the card's ECP engine
+    ecp = {dev: _apply_patches(stub(ecp=True), device=dev)
+           for dev in ("cuda", "cpu")}
+    mats = {dev: mf.mol.intor("ECPscalar") for dev, mf in ecp.items()}
+    d_ecp = float(np.abs(mats["cuda"] - mats["cpu"]).max()) / max(
+        1.0, float(np.abs(mats["cpu"]).max()))
+    check(np.abs(mats["cuda"]).max() > 0 and d_ecp < 1e-12,
+          f"api ECP: card vs CPU {d_ecp:.2e}")
+    out.append(f"ECPscalar card vs CPU {d_ecp:.1e} of max(1, |V|)")
+    torch.cuda.synchronize()
+    n_a, n_b = eri_k.launches, acc_k.launches
+    check(n_a > 0 and n_b > 0, f"api: kernel A {n_a}, B {n_b} launches")
+    # entry(): kernels A and B of the first tile launch, card vs CPU
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        fn, args = entry(device=dev)
+        eri_k.launches = acc_k.launches = 0
+        EJ, EK = fn(*args)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            check(eri_k.launches == 1 and acc_k.launches == 6,
+                  f"entry: A {eri_k.launches}, B {acc_k.launches} launches")
+            n_a, n_b = n_a + 1, n_b + 6
+        steps[dev] = [limbs_to_f64(x.cpu(), fn.e) for x in (EJ, EK)]
+    d_ent = max(float((x - y).abs().max()) for x, y in
+                zip(steps["cuda"], steps["cpu"])) * 2.0 ** -fn.e
+    check(d_ent < ACC_TOL[fn.tier], f"entry: card vs CPU {d_ent:.2e} of 2^e")
+    out.append(f"entry() step ({fn.tier}) card vs CPU {d_ent:.1e} of 2^e "
+               f"(tol {ACC_TOL[fn.tier]:g})")
+    for k, row, m in (("eri", "kern_a", n_a), ("accum_tile", "kern_b", n_b)):
+        if row in ctx:  # the kernels line counts this phase's launches too
+            ctx[row]["launches"] += m
+    out.append(f"launches A {n_a} B {n_b}")
+    return "; ".join(out)
+
+
 # --------------------------------------------------------------- main
 PHASES = (("build", phase_build), ("eri", phase_eri), ("accum", phase_accum),
           ("anchors", phase_anchors), ("full", phase_full),
-          ("engine", phase_engine), ("modes", phase_modes), ("dft", phase_dft), ("ecp", phase_ecp),
-          ("pair", phase_pair))
+          ("engine", phase_engine), ("modes", phase_modes), ("dft", phase_dft),
+          ("ecp", phase_ecp), ("pair", phase_pair), ("multi", phase_multi),
+          ("api", phase_api))
 
 
 def main(argv=None):

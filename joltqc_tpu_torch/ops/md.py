@@ -254,8 +254,13 @@ def eri_plain(ls, nprims, quartet, omega: float = 0.0):
                             col(cf[0], 0) * col(cf[1], 1))
         qd = make_pair_data(rep(C), rep(D), col(ex[2], 2), col(ex[3], 3),
                             col(cf[2], 2) * col(cf[3], 3))
-        blk = cart_eri_primitive(ls, pd, qd, omega)
-        out = out + blk.view(n, T, nfab, nfcd).sum(0)
+        blk = cart_eri_primitive(ls, pd, qd, omega).view(n, T, nfab, nfcd)
+        # one add per primitive quartet, in slot order: a task's sum does
+        # not depend on T or on the slicing (a library sum over the slot
+        # axis orders its terms by the tensor's shape), so a batch split
+        # into slices gives every task the same bits
+        for k in range(n):
+            out = out + blk[k]
     return out
 
 

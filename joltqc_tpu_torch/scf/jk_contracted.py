@@ -8,7 +8,9 @@ the scatter and block branches of ``_class_scan_body`` (``_run_plan``),
 ``get_jk`` (one density or a stack, ``omega``, ``hermi``, ``bucketed``),
 ``get_jk_incr`` and ``reset_incremental``; the Schwarz-q and plan disk
 caches (``_ensure_q``, ``_build_plan_cached``, utils/plancache.py),
-``accum='auto'`` (utils/autotune.py) and ``profile`` / ``class_time``.
+``accum='auto'`` (utils/autotune.py), ``profile`` / ``class_time``, and
+the task-sharded build of the reference's ``mesh=`` path over a
+``torch.distributed`` group (``group=``).
 
  - tasks (screened shell-quartet index quadruples) are built once on the
    host (scf/tasks.py, native/screen.cpp) and stay on the device;
@@ -52,10 +54,26 @@ The reference's ``fuse_group`` (class scans fused into one compiled
 program) and its pow2 chunk padding are not carried over, since the port
 has no compile step; the pad tasks the TPU needed for fixed chunk shapes
 are not made (a shorter last chunk).
+
+Sharding (``JKEngine(group=...)``, the reference's "split the within-chunk
+batch", ``parallel/jk_sharded.py``): every rank builds the same plan and
+runs, of each launch of b tasks, the contiguous slice r of R slices of
+ceil(b / R) tasks through the same kernels (A, then B on a tile entry; A,
+then the scatter or kernel D on a block entry, whose slice keeps its
+chunk's ``tb4`` and its own stretch of ``gslot``); an empty slice launches
+nothing.  After the last entry the four int64 limb accumulators are summed
+over the group with ``all_reduce(SUM)`` and decoded as on one device.  All
+ranks share one limb exponent and integer sums are associative, so J/K are
+bit-identical to one device for any R; no float is ever reduced.  Before
+each run the ranks compare a digest of the plan (and of the call's shape)
+with ``all_gather`` and raise if they differ.  Only rank 0 writes plan and
+q files; every rank may load them.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import time
 
 import numpy as np
@@ -182,6 +200,17 @@ def stream_index_tables(ls, stream, nao):
     return gidx, doff, f // nfs[yi], f % nfs[yi]
 
 
+def _sum_last(p):
+    """Sum over the last axis in a fixed pairwise order, by elementwise
+    adds of its halves: each element's bits depend on its own terms only,
+    whatever the batch."""
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        q = p[..., :h] + p[..., h:2 * h]
+        p = torch.cat([q, p[..., 2 * h:]], -1) if p.shape[-1] % 2 else q
+    return p[..., 0]
+
+
 def _contract_blocks(G, aos, nfs, dm_flat, nao, with_j, with_k, off=0):
     """Density contraction of an ERI block batch -> per-stream values.
 
@@ -196,8 +225,12 @@ def _contract_blocks(G, aos, nfs, dm_flat, nao, with_j, with_k, off=0):
     ``off``: flat element offset d*nao*nao of one density of a stack (the
     density gathers and the output indices both shift by it); the ERI
     block is computed once and contracted with every density.  The
-    products are batched library products in the tier's dtype, as the
-    reference leaves them to XLA outside any kernel."""
+    contraction is elementwise PyTorch in the tier's dtype, as the
+    reference leaves it to XLA outside any kernel: one product, then
+    ``_sum_last``, so that a task's values do not depend on the batch it
+    came in (a batched library product picks its algorithm, and its order
+    of terms, by the batch size, and a task split across ranks must give
+    the same bits)."""
     T = G.shape[0]
     G5 = G.reshape(T, *nfs)
     ar = [torch.arange(n, device=G.device) for n in nfs]
@@ -215,9 +248,11 @@ def _contract_blocks(G, aos, nfs, dm_flat, nao, with_j, with_k, off=0):
         return idx[xy]
 
     def stream(xy, uv, fac):
-        d = dm_flat[blk(uv)].view(T, nfs[_CENTER[uv[0]]], nfs[_CENTER[uv[1]]])
-        v = torch.einsum(f"tabcd,t{uv}->t{xy}", G5, d).reshape(T, -1)
-        return xy, (v * fac if fac != 1.0 else v), blk(xy)
+        x, y, u, v = (_CENTER[c] for c in xy + uv)
+        g = G5.permute(0, x + 1, y + 1, u + 1, v + 1).reshape(
+            T, nfs[x] * nfs[y], nfs[u] * nfs[v])
+        val = _sum_last(g * dm_flat[blk(uv)][:, None, :])
+        return xy, (val * fac if fac != 1.0 else val), blk(xy)
 
     jstreams = kstreams = ()
     if with_j:
@@ -229,7 +264,13 @@ def _contract_blocks(G, aos, nfs, dm_flat, nao, with_j, with_k, off=0):
 
 
 class JKEngine:
-    """Contracted-task mixed-precision get_jk over a BasisLayout."""
+    """Contracted-task mixed-precision get_jk over a BasisLayout.
+
+    ``group``: a torch.distributed process group over which every launch's
+    tasks are split (module docstring); every rank calls ``get_jk`` with
+    the same arguments and gets the same, one-device J/K.  The engine runs
+    on ``device`` as without a group: ``parallel.rank_device`` picks a
+    rank's card."""
 
     def __init__(
         self,
@@ -241,6 +282,7 @@ class JKEngine:
         accum: str = "tile",
         tile: int = 8,
         tile_w: int = 64,
+        group=None,
     ):
         self.device = resolve_device(device)
         self.layout = layout
@@ -271,13 +313,31 @@ class JKEngine:
         self._plan = None
         self.plan_stats: dict = {}
         # host wall seconds of the plan builds and the last Fock build,
-        # and plan builds per cache key (("full" | bucket, omega))
+        # the limb reduction's seconds and bytes (with a group), and plan
+        # builds per cache key (("full" | bucket, omega))
         self.timing: dict = {}
         self.plan_builds: dict = {}
         # profile=True: the card is synchronised after each entry, and the
         # entry's wall seconds add to class_time[(ls, nprims, tier)]
         self.profile = False
         self.class_time: dict = {}
+        # task sharding (module docstring): this process runs slice
+        # ``rank`` of ``world`` of every launch; ``group`` is a
+        # torch.distributed process group, None for one process (then
+        # torch.distributed is never touched)
+        self.group = group
+        self.rank, self.world = 0, 1
+        if group is not None:
+            import torch.distributed as dist
+
+            self.rank = dist.get_rank(group)
+            self.world = dist.get_world_size(group)
+        # in-process hooks of the tests: ``_split`` = (rank, world) runs
+        # that slice with nothing reduced; ``_limbs``, a list, receives
+        # each ``_run_plan``'s limb accumulators and exponent (after the
+        # reduction, before the decode)
+        self._split = None
+        self._limbs = None
 
     # ------------------------------------------------------------- espace
     def _espace(self):
@@ -441,7 +501,8 @@ class JKEngine:
                 pc.q_log = self._q_raw(pc)
                 order = np.argsort(-pc.q_log, kind="stable")
                 sort_pairs_by_q(pc)
-                plancache.save_arrays(path, q=pc.q_log, order=order)
+                if self.rank == 0:
+                    plancache.save_arrays(path, q=pc.q_log, order=order)
         if omega == 0.0:
             return pc.q_log
         if omega not in pc.q_omega:
@@ -451,7 +512,8 @@ class JKEngine:
                 pc.q_omega[omega] = got[0]
             else:
                 pc.q_omega[omega] = self._q_raw(pc, omega)
-                plancache.save_arrays(path, q=pc.q_omega[omega])
+                if self.rank == 0:
+                    plancache.save_arrays(path, q=pc.q_omega[omega])
         return pc.q_omega[omega]
 
     # --------------------------------------------------------------- plan
@@ -631,8 +693,11 @@ class JKEngine:
         disk when its key is there (every entry uploaded to the device
         here), else ``_build_plan``, saved when the build took at least
         ``JQC_PLAN_CACHE_MIN_SECS`` (plan_saves / plan_save_s /
-        plan_save_bytes in ``timing``).  The environment is read at each
-        call, so a caller can switch the cache between calls."""
+        plan_save_bytes in ``timing``), by rank 0 only.  The environment is
+        read at each call, so a caller can switch the cache between calls.
+        The key holds no rank count: the plan is the same for every R (a
+        launch is split across ranks only when it runs), so one file
+        serves any R."""
         key = plancache.plan_key(self, logdm, Dm, okey)
         loaded = plancache.load_plan(key)
         if loaded is not None:
@@ -645,7 +710,8 @@ class JKEngine:
         t0 = time.perf_counter()
         plan = self._build_plan(logdm, Dm, okey)
         secs = time.perf_counter() - t0
-        if key is not None and secs >= plancache.min_secs():
+        if (key is not None and secs >= plancache.min_secs()
+                and self.rank == 0):
             t1 = time.perf_counter()
             nbytes = plancache.save_plan(key, plan, self.plan_stats)
             _add(self.timing, plan_save_s=time.perf_counter() - t1,
@@ -743,12 +809,14 @@ class JKEngine:
             with_k, off)
 
     def _block_keys(self, entry, s0, idx, xy):
-        """Block row key (T,) int32 of every task of the launch at s0 for
-        output stream xy, and the launch's (G, 4) tile bases."""
+        """Block row key (T,) int32 of every task of the launch (or of a
+        rank's slice of it) that starts at task s0, for output stream xy,
+        and the (G, 4) tile bases of the chunk it lies in."""
         S, B = self.tile, entry["chunk"]
         gslot, tb4 = self._entry_dev(entry)[2:]
         x, y = _CENTER[xy[0]], _CENTER[xy[1]]
-        rowkey = gslot[s0 : s0 + B] * (S * S) + (idx[x] % S) * S + idx[y] % S
+        T = idx[x].shape[0]
+        rowkey = gslot[s0 : s0 + T] * (S * S) + (idx[x] % S) * S + idx[y] % S
         return rowkey, tb4[s0 // B]
 
     def _block_rows_index(self, tb4c, tbls, ls, xy):
@@ -798,7 +866,8 @@ class JKEngine:
         ``mode`` at limb exponent e: its tasks up to ``stop`` (all when
         None) in launches of ``chunk`` tasks (the entry's own when None;
         a block entry always runs at its own).  dm_t: (n_dm, nao, nao) in
-        the entry's tier dtype."""
+        the entry's tier dtype.  Of each launch only this rank's slice runs
+        (module docstring); returns the number of tasks run."""
         EJ, EK, AJ, AK = acc
         nao, ls = self.nao, entry["ls"]
         n_dm = dm_t.shape[0]
@@ -806,8 +875,17 @@ class JKEngine:
                    if (st[0] == "j" and with_j) or (st[0] == "k" and with_k)]
         B = chunk or self._entry_chunk(entry)
         n = entry["ntasks"] if stop is None else stop
-        for s0 in range(0, n, B):
-            tbls, idx, w, G = self._chunk_eri(entry, s0, omega, B)
+        r, R = self._shard()
+        ran = 0
+        for c0 in range(0, n, B):
+            # this rank's contiguous slice s0 .. s1 of the launch at c0
+            b = min(B, n - c0)
+            q = -(-b // R)
+            s0, s1 = c0 + r * q, min(c0 + b, c0 + (r + 1) * q)
+            if s1 <= s0:
+                continue
+            ran += s1 - s0
+            tbls, idx, w, G = self._chunk_eri(entry, s0, omega, s1 - s0)
             if mode == "tile":
                 for s in streams:
                     kind, xi, yi, ui, vi, _ = STREAMS[s]
@@ -841,12 +919,87 @@ class JKEngine:
                         a.index_add_(
                             0, self._block_rows_index(tb4c, tbls, ls, xy),
                             rows.view(-1, NLIMB))
+        return ran
+
+    def _shard(self):
+        """(rank, world) of the slices this engine runs: the test hook
+        ``_split`` when set, else the group's ((0, 1) without one)."""
+        return self._split or (self.rank, self.world)
+
+    def _check_plan(self, plan, *call):
+        """Raise unless every rank of the group runs the same plan with the
+        same call shape and cuts its launches at the same tasks: a digest
+        of each entry's ls, nprims, tier, accum, bound, idx and w, and of a
+        block entry's chunk, gslot and tb4 (hashed once per entry, widened
+        as built, so a plan loaded from disk hashes as the one built), of
+        every entry's launch size this call (at most its task count; an
+        ``'auto'`` engine's comes from the autotune tables, which may
+        differ between hosts) and of ``call``, compared with one all_gather of 32 bytes."""
+        import torch.distributed as dist
+
+        h = hashlib.sha256(json.dumps(
+            [call, [int(min(self._entry_chunk(x), x["ntasks"]))
+                    for x in plan]]).encode())
+        for x in plan:
+            d = x.get("_digest")
+            if d is None:
+                hx = hashlib.sha256(json.dumps(
+                    [[int(v) for v in x["ls"]], [int(v) for v in x["nprims"]],
+                     x["tier"], x["accum"], float(x["bound"]),
+                     int(x.get("chunk") or 0)]).encode())
+                hx.update(np.ascontiguousarray(x["idx"], np.int32).data)
+                hx.update(np.ascontiguousarray(x["w"], np.float32).data)
+                for f in ("gslot", "tb4"):
+                    if f in x:
+                        hx.update(np.ascontiguousarray(x[f], np.int32).data)
+                d = x["_digest"] = hx.digest()
+            h.update(d)
+        dev = (torch.device("cpu") if dist.get_backend(self.group) == "gloo"
+               else self.device)
+        mine = torch.frombuffer(bytearray(h.digest()),
+                                dtype=torch.uint8).to(dev)
+        got = [torch.empty_like(mine) for _ in range(self.world)]
+        dist.all_gather(got, mine, group=self.group)
+        bad = [r for r, g in enumerate(got) if not torch.equal(g, mine)]
+        if bad:
+            raise RuntimeError(f"JKEngine rank {self.rank}: the plan or call "
+                               f"differs from that of rank(s) {bad}")
+
+    def _reduce(self, acc):
+        """Sum the int64 limb accumulators over the group (all_reduce SUM,
+        exact), so that every rank holds the one-device limbs.  Under gloo
+        a CUDA accumulator goes through host memory, copied explicitly;
+        ``timing`` adds reduce_s and reduce_bytes (the accumulators'
+        bytes)."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        host = dist.get_backend(self.group) == "gloo"
+        nbytes = 0
+        for a in acc:
+            if a is None:
+                continue
+            if host and a.device.type != "cpu":
+                h = a.cpu()
+                dist.all_reduce(h, group=self.group)
+                a.copy_(h)
+            else:
+                dist.all_reduce(a, group=self.group)
+            nbytes += a.numel() * a.element_size()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        _add(self.timing, reduce_s=time.perf_counter() - t0,
+             reduce_bytes=nbytes)
 
     def _run_plan(self, dm_int, with_j, with_k, omega=0.0, bucketed=False,
                   cond=None, plan=None):
         """Folded accumulators (vj, vk) as float64 numpy partials P of
         shape (nao, nao), or (n_dm, nao, nao) for a stack: the
-        symmetric-dm result is P + P^T (8-fold orbit unfolding)."""
+        symmetric-dm result is P + P^T (8-fold orbit unfolding).  With a
+        group, this rank's slices are summed with the others' in limb form
+        before the decode; ``plan_stats['rank_tasks']`` is the tasks this
+        rank ran of the plan, and with ``profile`` ``class_time`` is this
+        rank's own."""
         nao = self.nao
         stacked = dm_int.ndim == 3
         n_dm = int(dm_int.shape[0]) if stacked else 1
@@ -874,16 +1027,27 @@ class JKEngine:
                  else x["accum"] for x in plan]
         acc = self._accumulators(n_dm, with_j, with_k, "tile" in modes,
                                  any(m != "tile" for m in modes))
+        sharded = self.group is not None and self._split is None
+        if sharded:
+            self._check_plan(plan, n_dm, bool(with_j), bool(with_k), okey, e)
+        rank_tasks = 0
         for entry, mode in zip(plan, modes):
             t0 = time.perf_counter()
-            self._run_entry(entry, mode, dms[tier_dtype(entry["tier"])], acc,
-                            e, with_j, with_k, okey)
+            rank_tasks += self._run_entry(
+                entry, mode, dms[tier_dtype(entry["tier"])], acc, e, with_j,
+                with_k, okey)
             if self.profile:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 key = (entry["ls"], entry["nprims"], entry["tier"])
                 self.class_time[key] = (self.class_time.get(key, 0.0)
                                         + time.perf_counter() - t0)
+        self.plan_stats["rank_tasks"] = rank_tasks
+        if sharded:
+            self._reduce(acc)
+        if self._limbs is not None:
+            self._limbs.append(
+                (tuple(None if a is None else a.clone() for a in acc), e))
         EJ, EK, AJ, AK = acc
         R = self._efold()
         shape = (n_dm, nao, nao) if stacked else (nao, nao)

@@ -368,3 +368,71 @@ def test_auto_against_tile_on_card(cuda, tmp_path, monkeypatch):
         scale = max(np.abs(jt[0]).max(), 1.0)
         assert max(np.abs(ja[0] - jt[0]).max(),
                    np.abs(ja[1] - jt[1]).max()) < 1e-9 * scale
+
+
+def _sharded_rank(rank, world, tmp):
+    """A spawned gloo rank on this host's card (cuda:0 on a one-card
+    machine): sharded tile and block get_jk on H2O/6-31g."""
+    import os
+
+    import torch.distributed as dist
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.parallel import sharded_jk_engine
+
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(tmp, "rendezvous"),
+        rank=rank, world_size=world)
+    try:
+        lay = BasisLayout(Molecule.from_atom_string(PAIR_H2O, basis="6-31g"))
+        a = np.random.default_rng(0).uniform(-1, 1, (lay.mol.nao,) * 2)
+        out = {}
+        for accum in ("tile", "block"):
+            eng = sharded_jk_engine(lay, dist.group.WORLD, accum=accum)
+            assert eng.device.type == "cuda"
+            out[f"{accum}_j"], out[f"{accum}_k"] = eng.get_jk(a + a.T)
+            out[f"{accum}_n"] = np.array(eng.plan_stats["rank_tasks"])
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_gloo_ranks_on_one_card(cuda, tmp_path, monkeypatch):
+    """2 gloo ranks sharing the card: tile and block J/K bit-identical to
+    one rank on the card, every task on exactly one rank."""
+    import torch.multiprocessing as mp
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.scf import JKEngine
+
+    monkeypatch.setenv("JQC_PLAN_CACHE", "0")
+    mp.spawn(_sharded_rank, args=(2, str(tmp_path)), nprocs=2, join=True)
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    lay = BasisLayout(Molecule.from_atom_string(PAIR_H2O, basis="6-31g"))
+    a = np.random.default_rng(0).uniform(-1, 1, (lay.mol.nao,) * 2)
+    for accum in ("tile", "block"):
+        eng = JKEngine(lay, device=cuda, accum=accum)
+        vj, vk = eng.get_jk(a + a.T)
+        assert sum(int(x[f"{accum}_n"]) for x in ranks) == \
+            eng.plan_stats["ntasks"]
+        for x in ranks:
+            assert np.array_equal(x[f"{accum}_j"], vj), accum
+            assert np.array_equal(x[f"{accum}_k"], vk), accum
+
+
+def test_entry_step_on_card(cuda):
+    """entry()'s fn (kernels A and B) on the card against its CPU run, at
+    the tier's bound of the static limb scale 2^e (chip_smoke ACC_TOL)."""
+    from joltqc_tpu_torch.entry import entry
+    from joltqc_tpu_torch.ops.accum import limbs_to_f64
+
+    got, want = [], []
+    for dev, out in ((cuda, got), ("cpu", want)):
+        fn, args = entry(device=dev)
+        EJ, EK = fn(*args)
+        out += [EJ.cpu(), EK.cpu(), fn.tier]
+    assert got[2] == want[2]
+    e = fn.e
+    tol = (1e-13 if got[2] == "fp64" else 1e-6) * 2.0 ** e
+    for g, w in zip(got[:2], want[:2]):
+        assert (limbs_to_f64(g, e) - limbs_to_f64(w, e)).abs().max() <= tol

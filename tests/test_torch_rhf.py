@@ -98,13 +98,19 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_import_leaves_no_jax():
-    """import joltqc_tpu_torch and every submodule: no jax, no joltqc_tpu."""
+    """import joltqc_tpu_torch and every submodule (parallel, pyscf and
+    entry among them): no jax, no joltqc_tpu, no pyscf, no process
+    group."""
     code = (
         "import pkgutil, importlib, sys, joltqc_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m == 'joltqc_tpu'"
-        " or m.startswith(('jax.', 'joltqc_tpu.'))]\n"
+        "need = ['parallel', 'parallel.jk_sharded', 'pyscf', 'entry']\n"
+        "assert all(p.__name__ + '.' + n in sys.modules for n in need)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'joltqc_tpu', 'pyscf')"
+        " or m.startswith(('jax.', 'joltqc_tpu.', 'pyscf.'))]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('joltqc_tpu_torch')]))\n"
     )
