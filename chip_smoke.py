@@ -27,7 +27,9 @@ Phases, each printed with its result and wall time on its own line:
   5. full       RHF 0029-elongated-halogenated/6-31g* (302 AO) to
                 convergence against its recorded energy, with every
                 kernel launch counted and none of kernel A's on the
-                generic route; get_jk twice on the converged density must
+                generic route; the one-electron engine on the card: S/T/V
+                the same bits at chunk 2048 and 300, hcore = T + V, a
+                warm stv timed; get_jk twice on the converged density must
                 be bit-identical; kernel A's device time over one get_jk
                 by class; then every (tier, class) the plan launches, with
                 kernel B on each one's G, is held against its plain
@@ -51,10 +53,18 @@ Phases, each printed with its result and wall time on its own line:
                 'auto' on the table it wrote;
   7. modes      at the same 302 AO, on the converged density: get_jk of a
                 scatter and a block engine against the tile path's, with
-                kernel D's launches counted; hermi=0, omega and a stack;
-                kernels C and D held against their plain versions and
-                timed on chunks of that path; incremental RHF against the
-                direct run;
+                kernel D's launches counted; each engine with fuse_group
+                24 and len(plan) (CUDA graphs of A, the scatter and D)
+                bit-identical to its per-entry get_jk, first and warm,
+                a warm call replaying ceil(entries / G) graphs with no
+                Python launch, a call on 0.9 dm replaying them too and
+                equal to the per-entry J/K of 0.9 dm, its wall, capture
+                seconds and the graphs' memory; hermi=0, omega and a
+                stack; kernels C and D held against their plain versions
+                and timed on chunks of that path; incremental RHF,
+                started from the direct run's density of cycle
+                INCR_START, against the direct run's energy, its delta
+                builds over at least two density buckets;
   8. dft        restricted Kohn-Sham on the card (its Fock builds through
                 kernels A and B): H2O/6-31g lda,vwn, pbe, b3lyp and
                 wb97x-v (VV10 off) against a float64 host oracle SCF
@@ -120,7 +130,11 @@ an earlier phase or an earlier run wrote.
 Any failed phase makes the script exit nonzero.  Options: --only PHASES
 (comma list, for debugging: build,eri,accum,anchors,full,engine,modes,
 dft,ecp,pair,multi,api; modes, pair and multi run the 0029 SCF themselves
-when full is left out).
+when full is left out).  One phase runs only when --only names it:
+fusedscf, an incremental 0029 RHF from the guess on a block engine with
+fuse_group 24, against the direct run's energy, with the reserved memory
+after every cycle, the graphs captured and replayed and the live graph
+states.
 """
 
 from __future__ import annotations
@@ -165,6 +179,10 @@ ACC_TOL = {"f32": 1e-6, "fp64": 1e-13}  # of the static bound 2^e
 # J/K of two accumulation modes on one density, of max(|J|, 1): the
 # reference's bounds (tests/test_jk_engine.py, tile and block vs scatter)
 MODE_TOL = {"tile": 1e-9, "block": 1e-11}
+# phase modes' incremental RHF starts from the direct run's density of this
+# cycle (|dE| about 3e-2 there, 15 cycles short of convergence): a cut of
+# depth, since from the guess it took 85-98 s of the script
+INCR_START = 12
 
 
 class PhaseError(RuntimeError):
@@ -696,7 +714,7 @@ def phase_full(ctx):
     eri_k.generic_launches = 0
     acc_k.launches = 0
     t0 = time.perf_counter()
-    e = mf.kernel()
+    e = _kernel_keeping_densities(mf)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ctx["launches"] = {"eri": eri_k.launches, "accum_tile": acc_k.launches,
@@ -717,6 +735,7 @@ def phase_full(ctx):
           "not launched on the main path")
     check(eri_k.generic_launches == 0, f"0029: {eri_k.generic_launches} "
           "ERI launches took the generic route")
+    _int1e_on_card(mf)
     # determinism of the Fock build on the converged density
     dm = mf.dm
     eri_k.launches = acc_k.launches = 0
@@ -1318,12 +1337,57 @@ def _scf_0029(ctx):
 
         mf = RHF(Molecule.from_xyz_file(XYZ_0029, basis="6-31g*"))
         t0 = time.perf_counter()
-        e = mf.kernel()
+        e = _kernel_keeping_densities(mf)
         torch.cuda.synchronize()
         check(mf.converged, "0029: SCF not converged")
         ctx["mf"], ctx["e_0029"] = mf, e
         ctx["scf_wall"] = time.perf_counter() - t0
     return ctx["mf"]
+
+
+def _kernel_keeping_densities(mf):
+    """``mf.kernel()``, keeping the density that enters each cycle's Fock
+    build in ``mf.dm_cycles`` (cycle 0: the guess)."""
+    import numpy as np
+
+    mf.dm_cycles = []
+    build = mf.get_veff
+
+    def get_veff(dm):
+        mf.dm_cycles.append(np.array(dm))
+        return build(dm)
+
+    mf.get_veff = get_veff
+    try:
+        return mf.kernel()
+    finally:
+        del mf.get_veff
+
+
+def _int1e_on_card(mf):
+    """The one-electron engine on the card at the SCF's layout: S/T/V at
+    chunk 300 the same bits as the SCF's pass (chunk 2048), hcore() =
+    T + V bit for bit; prints a warm stv's wall (best of three)."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.scf.int1e import Int1eEngine
+
+    want = mf._stv
+    check(want is not None, "0029: the SCF did not build S/T/V on the card")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Int1eEngine(mf.layout).stv()
+        walls.append(time.perf_counter() - t0)
+    got = Int1eEngine(mf.layout, chunk=300).stv()
+    check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+          "0029: int1e S/T/V at chunk 300 differ from chunk 2048")
+    h = Int1eEngine(mf.layout).hcore()
+    check(np.array_equal(h, want[1] + want[2]), "0029: hcore() is not T + V")
+    say(f"  0029 int1e: warm stv {min(walls):.3f} s (best of "
+        f"{', '.join(f'{w:.3f}' for w in walls)}; chunk 2048), S/T/V at "
+        "chunk 300 bit-identical, hcore() = T + V bit for bit")
 
 
 def _jk_diff(a, b):
@@ -1389,6 +1453,8 @@ def phase_modes(ctx):
               f"modes {a} vs {b}: |dJ| {dj:.3e} |dK| {dk:.3e} above "
               f"{tol:g} x {scale:.4g}")
     say("  modes J/K: " + "; ".join(lines))
+    for mode in ("scatter", "block"):
+        _fuse_group(engines[mode], mode, dm, jk[mode], walls[mode])
 
     # hermi=0 on dm + A, omega=0.3: tile against scatter; J of the hermi=0
     # call is J of the symmetric part; a stack [dm, dm/2] gives [J, J/2]
@@ -1429,29 +1495,167 @@ def phase_modes(ctx):
 
     _time_cd(ctx, mf, engines["block"])
 
-    # incremental direct SCF against the direct run of this script
+    # incremental direct SCF from the direct run's density of cycle
+    # INCR_START, against the direct run's energy; the first build is of
+    # the whole density, every later one of a delta
     mi = RHF(mf.mol, cutoff_fp32=mf.cutoff_fp32, cutoff_fp64=mf.cutoff_fp64,
              incremental=True)
     t0 = time.perf_counter()
-    e_i = mi.kernel()
+    e_i = mi.kernel(dm0=mf.dm_cycles[INCR_START])
     torch.cuda.synchronize()
     wall_i = time.perf_counter() - t0
     de = abs(e_i - ctx["e_0029"])
+    first = next(iter(mi.jk.plan_builds))[0]
+    delta_buckets = sorted({k[0] for k in mi.jk.plan_builds if k[0] < first})
     builds = {f"{k[0]}": v for k, v in sorted(
         mi.jk.plan_builds.items(), key=lambda kv: str(kv[0]))}
-    say(f"  modes incremental RHF: E={e_i:.10f} |dE vs direct|={de:.2e} "
+    say(f"  modes incremental RHF from the direct run's cycle {INCR_START}: "
+        f"E={e_i:.10f} |dE vs direct|={de:.2e} "
         f"conv_tol={mi.conv_tol:g} cycles={mi.scf_summary['cycles']} (direct "
         f"{mf.scf_summary['cycles']}) scf_wall_s={wall_i:.2f} (direct "
         f"{ctx['scf_wall']:.2f}) plan_build_s="
         f"{mi.jk.timing.get('plan_build_s', 0.0):.2f} plan builds per "
-        f"bucket {builds}")
+        f"bucket {builds} (first {first}, delta buckets {delta_buckets})")
     check(mi.converged, "modes: incremental SCF not converged")
+    check(len(delta_buckets) >= 2, f"modes: incremental delta builds over "
+          f"buckets {delta_buckets}, want at least two below {first}")
     check(de < 1e-8, f"modes: incremental E {e_i:.10f} vs direct "
           f"{ctx['e_0029']:.10f}")
     return (f"scatter {walls['scatter']:.3f} s, block {walls['block']:.3f} s "
             f"per warm get_jk (tile {ctx.get('jk_wall', float('nan')):.3f} "
             f"s); kernel D launches {ctx['launches_modes']['block']}; "
             f"incremental |dE| {de:.2e}")
+
+
+def _fuse_group(eng, mode, dm, want, wall):
+    """``fuse_group`` at G = 24 and G = len(plan) on an engine of phase
+    modes: J/K bit-identical to its per-entry ``get_jk`` (``want``, warm
+    wall ``wall``), first and warm; a warm call replays ceil(entries / G)
+    CUDA graphs and makes no Python launch of A or D; a call on 0.9 dm
+    (the same plan and key) replays them again, captures nothing and
+    equals the per-entry J/K of 0.9 dm.  Prints the walls, the capture
+    seconds and the rise in reserved memory (the engine's one graph pool,
+    shared by both keys, and each key's static buffers)."""
+    import numpy as np
+    import torch
+    from joltqc_tpu_torch.ops.accum import accum_block_chunk as blk_k
+    from joltqc_tpu_torch.ops.eri import eri_chunk as eri_k
+
+    plan = eng._plan
+    n = len(plan)
+    other = eng.get_jk(0.9 * dm)
+    check(eng._plan is plan, f"modes {mode}: 0.9 dm rebuilt the plan")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    for G in (24, n):
+        eng.fuse_group = G
+        groups = -(-n // G)
+        t = dict(eng.timing)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        first = eng.get_jk(dm)
+        torch.cuda.synchronize()
+        first_wall = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        pool_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+        caps = eng.timing["graph_captures"] - t.get("graph_captures", 0)
+        cap_s = (eng.timing["graph_capture_s"]
+                 - t.get("graph_capture_s", 0.0))
+        launches = (eri_k.launches, blk_k.launches)
+        reps = eng.timing.get("graph_replays", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = eng.get_jk(dm)
+        torch.cuda.synchronize()
+        warm_wall = time.perf_counter() - t0
+        reps = eng.timing["graph_replays"] - reps
+        moved = (eri_k.launches - launches[0], blk_k.launches - launches[1])
+        caps2 = eng.timing["graph_captures"]
+        reps2 = eng.timing["graph_replays"]
+        again = eng.get_jk(0.9 * dm)
+        caps2 = eng.timing["graph_captures"] - caps2
+        reps2 = eng.timing["graph_replays"] - reps2
+        for name, out, ref in (("first", first, want), ("warm", warm, want),
+                               ("0.9 dm", again, other)):
+            check(np.array_equal(out[0], ref[0])
+                  and np.array_equal(out[1], ref[1]),
+                  f"modes {mode} fuse_group={G}: {name} J/K differ from "
+                  "the per-entry get_jk")
+        check(caps == groups and reps == groups and caps2 == 0
+              and reps2 == groups and eng._plan is plan,
+              f"modes {mode} fuse_group={G}: {caps} captures, {reps} "
+              f"replays, then on 0.9 dm {caps2} and {reps2}, want "
+              f"{groups}, {groups}, 0, {groups} on the same plan")
+        check(moved == (0, 0), f"modes {mode} fuse_group={G}: a warm call "
+              f"made Python launches (A, D) {moved}")
+        say(f"  modes {mode} fuse_group={G}: {n} entries in {groups} CUDA "
+            f"graphs, J/K bit-identical first, warm and on 0.9 dm "
+            f"({reps2} replays, {caps2} captures); warm get_jk "
+            f"{warm_wall:.3f} s (per-entry {wall:.3f} s), first "
+            f"{first_wall:.3f} s of which capture {cap_s:.3f} s, reserved "
+            f"memory +{pool_mib:.1f} MiB; warm call: {reps} replays, A/D "
+            f"Python launches {moved}")
+    eng.fuse_group = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    both = (torch.cuda.memory_reserved() - reserved0) / 2**20
+    say(f"  modes {mode} fuse_group: both keys' graphs in one pool, "
+        f"reserved memory +{both:.1f} MiB over the engine without graphs")
+
+
+def phase_fusedscf(ctx):
+    """Opt-in (--only fusedscf): incremental RHF at 0029 from the guess on
+    a block engine with fuse_group 24, against the direct run's energy;
+    the reserved memory after every cycle, the graphs captured and
+    replayed, and the graph states alive at the end."""
+    import torch
+    from joltqc_tpu_torch.scf import RHF, JKEngine
+
+    mf = _scf_0029(ctx)
+    mi = RHF(mf.mol, cutoff_fp32=mf.cutoff_fp32, cutoff_fp64=mf.cutoff_fp64,
+             incremental=True)
+    mi.jk = JKEngine(mi.layout, cutoff_fp32=mf.cutoff_fp32,
+                     cutoff_fp64=mf.cutoff_fp64, accum="block")
+    mi.jk.fuse_group = 24
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    mib = []
+    build = mi.get_veff
+
+    def get_veff(dm):
+        v = build(dm)
+        torch.cuda.synchronize()
+        mib.append((torch.cuda.memory_reserved() - base) / 2**20)
+        return v
+
+    mi.get_veff = get_veff
+    t0 = time.perf_counter()
+    e = mi.kernel()
+    wall = time.perf_counter() - t0
+    de = abs(e - ctx["e_0029"])
+    tm = mi.jk.timing
+    plans = [p for p, _ in mi.jk._plans.values() if p]
+    live = sum(len(p[0].get("_groups", {})) for p in plans)
+    say(f"  fusedscf: E={e:.10f} |dE vs direct|={de:.2e} cycles="
+        f"{mi.scf_summary['cycles']} scf_wall_s={wall:.2f} plan_build_s="
+        f"{tm.get('plan_build_s', 0.0):.2f} plan_builds="
+        f"{tm.get('plan_builds', 0)} graph_captures="
+        f"{tm.get('graph_captures', 0)} graph_capture_s="
+        f"{tm.get('graph_capture_s', 0.0):.2f} graph_replays="
+        f"{tm.get('graph_replays', 0)}; {len(plans)} live bucket plans "
+        f"with {live} graph states; reserved MiB over the start per cycle "
+        f"{[round(x, 1) for x in mib]}")
+    check(mi.converged, "fusedscf: incremental SCF not converged")
+    check(de < 1e-8, f"fusedscf: E {e:.10f} vs direct {ctx['e_0029']:.10f}")
+    check(tm.get("graph_captures", 0) > 0, "fusedscf: no graph captured")
+    return (f"|dE| {de:.2e} in {mi.scf_summary['cycles']} cycles, "
+            f"{wall:.1f} s; reserved memory peak +{max(mib):.1f} MiB, end "
+            f"+{mib[-1]:.1f} MiB; {tm.get('graph_captures', 0)} captures, "
+            f"{tm.get('graph_replays', 0)} replays, {live} live states")
 
 
 def _byte_bound(T, nf, es, idx_bytes, ntgt):
@@ -2821,9 +3025,11 @@ def phase_api(ctx):
 # --------------------------------------------------------------- main
 PHASES = (("build", phase_build), ("eri", phase_eri), ("accum", phase_accum),
           ("anchors", phase_anchors), ("full", phase_full),
-          ("engine", phase_engine), ("modes", phase_modes), ("dft", phase_dft),
+          ("engine", phase_engine), ("modes", phase_modes),
+          ("fusedscf", phase_fusedscf), ("dft", phase_dft),
           ("ecp", phase_ecp), ("pair", phase_pair), ("multi", phase_multi),
           ("api", phase_api))
+OPT_IN = {"fusedscf"}  # run only when --only names them
 
 
 def main(argv=None):
@@ -2863,7 +3069,8 @@ def _run(want, ctx):
 
     ok = True
     for name, fn in PHASES:
-        if want is not None and name not in want and name != "build":
+        if want is None and name in OPT_IN or (
+                want is not None and name not in want and name != "build"):
             continue
         t0 = time.perf_counter()
         try:

@@ -1,7 +1,8 @@
 """BasisLayout: molecule -> internal cartesian AO space + AO transforms.
 
-Copy of ``joltqc_tpu/mol/layout.py`` (the parts the RHF and RKS paths
-use; ``pair_block`` is not needed).
+Copy of ``joltqc_tpu/mol/layout.py``: the transforms, the l groups, the
+density pooling and the primitive-pair blocks (``PrimPairBlock``,
+``pair_block``, ``lpairs``; host numpy, the reference's arrays exactly).
 Reference counterpart: JoltQC jqc/pyscf/basis.py (BasisLayout: dm
 transforms).  The internal AO basis is cartesian in molecular shell
 order; a single rectangular transform matrix P (internal x mol) folds
@@ -10,11 +11,38 @@ cart->sph and normalization, applied as dense f64 matmuls on the host.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 
 from ..constants import nf_cart
 from ..ops.harmonics import cart_norm_factors, cart_to_sph_factors
 from .molecule import Molecule
+
+
+@dataclass
+class PrimPairBlock:
+    """All primitive pairs for one angular-momentum group pair (li, lj)."""
+
+    li: int
+    lj: int
+    # per primitive pair arrays, length n:
+    A: np.ndarray  # (n, 3)
+    B: np.ndarray  # (n, 3)
+    ea: np.ndarray  # (n,)
+    eb: np.ndarray  # (n,)
+    cab: np.ndarray  # (n,) coefficient product
+    ao_i: np.ndarray  # (n,) int32 internal AO start of shell i
+    ao_j: np.ndarray  # (n,) int32
+    ish: np.ndarray  # (n,) int32 shell index (for dm_cond screening)
+    jsh: np.ndarray  # (n,) int32
+    diag: np.ndarray  # (n,) bool, ish == jsh (shell-level symmetry weight)
+    pair_id: np.ndarray  # (n,) int32 shell-pair id (i*(i+1)/2 + j for i>=j)
+    q_log: np.ndarray = None  # (n,) f32 log sqrt(max (ab|ab)), set lazily
+
+    @property
+    def n(self):
+        return len(self.ea)
 
 
 class BasisLayout:
@@ -29,6 +57,7 @@ class BasisLayout:
         self.nao_mol = mol.nao
         self._build_transform()
         self._build_groups()
+        self._pair_blocks: dict = {}
 
     # ------------------------------------------------------------ transform
     def _build_transform(self):
@@ -60,6 +89,56 @@ class BasisLayout:
         self.groups = {l: np.array(idx, np.int32) for l, idx in sorted(groups.items())}
         self.ls = sorted(self.groups)
 
+    # ------------------------------------------------------------ prim pairs
+    def pair_block(self, li: int, lj: int) -> PrimPairBlock:
+        """Primitive pairs for group pair (li >= lj ordering of shells).
+
+        For li == lj only shell pairs ish >= jsh are enumerated (with ALL
+        ordered primitive combinations); symmetry weights are shell-level.
+        """
+        key = (li, lj)
+        if key in self._pair_blocks:
+            return self._pair_blocks[key]
+        shells = self.mol.shells
+        gi, gj = self.groups[li], self.groups[lj]
+        rows = {k: [] for k in ("A", "B", "ea", "eb", "cab", "ao_i", "ao_j",
+                                "ish", "jsh", "diag", "pair_id")}
+        for ish in gi:
+            si = shells[ish]
+            for jsh in gj:
+                if li == lj and jsh > ish:
+                    continue
+                sj = shells[jsh]
+                hi, lo = max(ish, jsh), min(ish, jsh)
+                for eai, cai in zip(si.exps, si.coeffs):
+                    for ebj, cbj in zip(sj.exps, sj.coeffs):
+                        rows["A"].append(si.coord)
+                        rows["B"].append(sj.coord)
+                        rows["ea"].append(eai)
+                        rows["eb"].append(ebj)
+                        rows["cab"].append(cai * cbj)
+                        rows["ao_i"].append(self.ao_loc_int[ish])
+                        rows["ao_j"].append(self.ao_loc_int[jsh])
+                        rows["ish"].append(ish)
+                        rows["jsh"].append(jsh)
+                        rows["diag"].append(ish == jsh)
+                        rows["pair_id"].append(hi * (hi + 1) // 2 + lo)
+        f64 = {k: np.array(rows[k], np.float64) for k in ("ea", "eb", "cab")}
+        i32 = {k: np.array(rows[k], np.int32)
+               for k in ("ao_i", "ao_j", "ish", "jsh", "pair_id")}
+        blk = PrimPairBlock(
+            li, lj,
+            A=np.array(rows["A"], np.float64).reshape(-1, 3),
+            B=np.array(rows["B"], np.float64).reshape(-1, 3),
+            diag=np.array(rows["diag"], bool), **f64, **i32,
+        )
+        self._pair_blocks[key] = blk
+        return blk
+
+    def lpairs(self):
+        """All (li, lj) with li >= lj present in the molecule."""
+        return [(a, b) for a in self.ls for b in self.ls if a >= b]
+
     # ------------------------------------------------------------ dm_cond
     def dm_cond(self, dm_int: np.ndarray) -> np.ndarray:
         """Shell-block max |dm| pooling (nbas, nbas), vectorized host-side.
@@ -84,4 +163,4 @@ class BasisLayout:
         return np.sqrt(np.add.reduceat(rows, starts, axis=1))
 
 
-__all__ = ["BasisLayout"]
+__all__ = ["BasisLayout", "PrimPairBlock"]

@@ -29,6 +29,17 @@ from .harmonics import cart_components
 SLICE_ELEMS = 1 << 26
 
 
+def sum_last(p):
+    """Sum over the last axis in a fixed pairwise order, by elementwise
+    adds of its halves: each element's bits depend on its own terms only,
+    whatever the batch."""
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        q = p[..., :h] + p[..., h:2 * h]
+        p = torch.cat([q, p[..., 2 * h:]], -1) if p.shape[-1] % 2 else q
+    return p[..., 0]
+
+
 # ------------------------------------------------------------ index sets
 @lru_cache(maxsize=None)
 def tri_set(L: int):
@@ -265,4 +276,5 @@ def eri_plain(ls, nprims, quartet, omega: float = 0.0):
 
 
 __all__ = ["tri_set", "coupling_index", "ket_signs", "make_pair_data",
-           "e_table", "e_rows", "r_table", "cart_eri_primitive", "eri_plain"]
+           "e_table", "e_rows", "r_table", "cart_eri_primitive", "eri_plain",
+           "sum_last"]

@@ -8,7 +8,8 @@ the scatter and block branches of ``_class_scan_body`` (``_run_plan``),
 ``get_jk`` (one density or a stack, ``omega``, ``hermi``, ``bucketed``),
 ``get_jk_incr`` and ``reset_incremental``; the Schwarz-q and plan disk
 caches (``_ensure_q``, ``_build_plan_cached``, utils/plancache.py),
-``accum='auto'`` (utils/autotune.py), ``profile`` / ``class_time``, and
+``accum='auto'`` (utils/autotune.py), ``profile`` / ``class_time``,
+``fuse_group`` (the reference's fused class scans, as CUDA graphs), and
 the task-sharded build of the reference's ``mesh=`` path over a
 ``torch.distributed`` group (``group=``).
 
@@ -50,10 +51,40 @@ Plans and Schwarz q persist across processes (utils/plancache.py, with
 its environment variables): a plan is loaded when its key is on disk,
 else built and saved if the build took at least
 ``JQC_PLAN_CACHE_MIN_SECS``; ``timing`` counts builds and loads apart.
-The reference's ``fuse_group`` (class scans fused into one compiled
-program) and its pow2 chunk padding are not carried over, since the port
-has no compile step; the pad tasks the TPU needed for fixed chunk shapes
-are not made (a shorter last chunk).
+The reference's pow2 chunk padding is not carried over: the pad tasks
+the TPU needed for fixed chunk shapes are not made (a shorter last
+chunk).
+
+Fused groups (``fuse_group = G``, set after construction; None runs one
+entry at a time): a call whose entries all run as scatter or block (a
+stack turns block into scatter), without ``profile``, a group or
+``_split``, runs its plan in groups of G consecutive entries
+(``_run_groups``); any other call takes the per-entry loop.  On the card
+each group is one ``torch.cuda.CUDAGraph`` of its ``_run_entry`` calls
+(kernel A, the contractions, the scatter's ``index_add_`` and kernel D).
+A call key holds what a graph bakes in: G, the density count,
+``with_j``/``with_k``, omega, the limb exponent, every entry's mode and
+launch size.  The key's first call runs each group once uncaptured into
+the key's accumulators (that run is the call's result; it also loads
+the kernel libraries and uploads the tables) and then captures it; every
+later call copies its densities into the key's static density buffers,
+zeroes the key's four limb accumulators once and replays the groups in
+order, so all of them add into the same accumulators, which are decoded
+as on the per-entry path.  The state lives in the plan's first entry, as
+``_entry_dev``'s uploads do, so a rebuilt plan starts afresh and the old
+graphs are freed with the old plan: the live states are one per key of
+each live plan (the full plan of each omega, and on the incremental path
+one plan per density bucket).  The graphs of every key and plan capture into one memory
+pool of the engine: a graph's outputs are the static accumulators, made
+outside the pool, so what it allocates inside dies within its own replay,
+and graphs replayed one after another on one stream can reuse the same
+blocks in any order; the pool then holds about one group's scratch, not
+one per key.  A capture or replay error raises: nothing falls back to
+the per-entry loop.  ``timing`` counts ``graph_captures``,
+``graph_replays`` and ``graph_capture_s``; the launchers' counts are of
+Python calls, so a replay adds nothing to them.  On the CPU the same
+grouping runs each group's entries directly, with the same keys and
+state and no capture.
 
 Sharding (``JKEngine(group=...)``, the reference's "split the within-chunk
 batch", ``parallel/jk_sharded.py``): every rank builds the same plan and
@@ -74,6 +105,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import numbers
 import time
 
 import numpy as np
@@ -90,6 +122,7 @@ from ..ops.accum_tile import StreamTables, contract_tile
 from ..ops.cuda import resolve_device
 from ..ops.eri import contracted_eri_batch, tier_dtype
 from ..ops.harmonics import cart_components
+from ..ops.md import sum_last
 from .tasks import (
     build_pair_classes,
     build_quartet_tasks,
@@ -200,17 +233,6 @@ def stream_index_tables(ls, stream, nao):
     return gidx, doff, f // nfs[yi], f % nfs[yi]
 
 
-def _sum_last(p):
-    """Sum over the last axis in a fixed pairwise order, by elementwise
-    adds of its halves: each element's bits depend on its own terms only,
-    whatever the batch."""
-    while p.shape[-1] > 1:
-        h = p.shape[-1] // 2
-        q = p[..., :h] + p[..., h:2 * h]
-        p = torch.cat([q, p[..., 2 * h:]], -1) if p.shape[-1] % 2 else q
-    return p[..., 0]
-
-
 def _contract_blocks(G, aos, nfs, dm_flat, nao, with_j, with_k, off=0):
     """Density contraction of an ERI block batch -> per-stream values.
 
@@ -227,7 +249,7 @@ def _contract_blocks(G, aos, nfs, dm_flat, nao, with_j, with_k, off=0):
     block is computed once and contracted with every density.  The
     contraction is elementwise PyTorch in the tier's dtype, as the
     reference leaves it to XLA outside any kernel: one product, then
-    ``_sum_last``, so that a task's values do not depend on the batch it
+    ``sum_last``, so that a task's values do not depend on the batch it
     came in (a batched library product picks its algorithm, and its order
     of terms, by the batch size, and a task split across ranks must give
     the same bits)."""
@@ -251,7 +273,7 @@ def _contract_blocks(G, aos, nfs, dm_flat, nao, with_j, with_k, off=0):
         x, y, u, v = (_CENTER[c] for c in xy + uv)
         g = G5.permute(0, x + 1, y + 1, u + 1, v + 1).reshape(
             T, nfs[x] * nfs[y], nfs[u] * nfs[v])
-        val = _sum_last(g * dm_flat[blk(uv)][:, None, :])
+        val = sum_last(g * dm_flat[blk(uv)][:, None, :])
         return xy, (val * fac if fac != 1.0 else val), blk(xy)
 
     jstreams = kstreams = ()
@@ -321,6 +343,10 @@ class JKEngine:
         # entry's wall seconds add to class_time[(ls, nprims, tier)]
         self.profile = False
         self.class_time: dict = {}
+        # entries per fused group (module docstring); None = one at a time;
+        # the graphs of every key and plan share one memory pool
+        self.fuse_group = None
+        self._graph_pool = None
         # task sharding (module docstring): this process runs slice
         # ``rank`` of ``world`` of every launch; ``group`` is a
         # torch.distributed process group, None for one process (then
@@ -921,6 +947,62 @@ class JKEngine:
                             rows.view(-1, NLIMB))
         return ran
 
+    def _run_groups(self, plan, modes, dms, e, with_j, with_k, okey):
+        """Run ``plan`` in groups of ``fuse_group`` consecutive entries
+        (module docstring) and return the call key's limb accumulators
+        (EJ, EK, AJ, AK).  dms: the call's {dtype: (n_dm, nao, nao)}."""
+        G = self.fuse_group
+        chunks = tuple(int(self._entry_chunk(x)) for x in plan)
+        n_dm = int(dms[torch.float64].shape[0])
+        key = (G, n_dm, bool(with_j), bool(with_k), okey, e, tuple(modes),
+               chunks)
+        states = plan[0].setdefault("_groups", {})
+        st = states.get(key)
+        starts = range(0, len(plan), G)
+        on_card = self.device.type == "cuda"
+
+        def run(g0, st):
+            for i in range(g0, min(g0 + G, len(plan))):
+                self._run_entry(plan[i], modes[i],
+                                st["dms"][tier_dtype(plan[i]["tier"])],
+                                st["acc"], e, with_j, with_k, okey,
+                                chunk=chunks[i])
+
+        if st is None:
+            # static inputs: copies (a CPU tensor may share the caller's
+            # numpy array)
+            st = dict(dms={dt: d.clone() for dt, d in dms.items()},
+                      graphs=[],
+                      acc=self._accumulators(n_dm, with_j, with_k, False,
+                                             True))
+            if on_card and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            for g0 in starts:
+                run(g0, st)
+                if on_card:
+                    t0 = time.perf_counter()
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=self._graph_pool):
+                        run(g0, st)
+                    st["graphs"].append(graph)
+                    _add(self.timing, graph_captures=1,
+                         graph_capture_s=time.perf_counter() - t0)
+            states[key] = st
+            return st["acc"]
+        for dt, buf in st["dms"].items():
+            buf.copy_(dms[dt])
+        for a in st["acc"]:
+            if a is not None:
+                a.zero_()
+        if on_card:
+            for graph in st["graphs"]:
+                graph.replay()
+            _add(self.timing, graph_replays=len(st["graphs"]))
+        else:
+            for g0 in starts:
+                run(g0, st)
+        return st["acc"]
+
     def _shard(self):
         """(rank, world) of the slices this engine runs: the test hook
         ``_split`` when set, else the group's ((0, 1) without one)."""
@@ -1025,23 +1107,33 @@ class JKEngine:
         # block reductions are single-dm: a stack runs them as scatter
         modes = ["scatter" if n_dm > 1 and x["accum"] == "block"
                  else x["accum"] for x in plan]
-        acc = self._accumulators(n_dm, with_j, with_k, "tile" in modes,
-                                 any(m != "tile" for m in modes))
         sharded = self.group is not None and self._split is None
-        if sharded:
-            self._check_plan(plan, n_dm, bool(with_j), bool(with_k), okey, e)
-        rank_tasks = 0
-        for entry, mode in zip(plan, modes):
-            t0 = time.perf_counter()
-            rank_tasks += self._run_entry(
-                entry, mode, dms[tier_dtype(entry["tier"])], acc, e, with_j,
-                with_k, okey)
-            if self.profile:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                key = (entry["ls"], entry["nprims"], entry["tier"])
-                self.class_time[key] = (self.class_time.get(key, 0.0)
-                                        + time.perf_counter() - t0)
+        G = self.fuse_group
+        if G is not None and not (isinstance(G, numbers.Integral) and G >= 1):
+            raise ValueError(f"fuse_group {G!r}: None or an int >= 1")
+        if (plan and G is not None and not self.profile
+                and self.group is None and self._split is None
+                and "tile" not in modes):
+            acc = self._run_groups(plan, modes, dms, e, with_j, with_k, okey)
+            rank_tasks = sum(x["ntasks"] for x in plan)
+        else:
+            acc = self._accumulators(n_dm, with_j, with_k, "tile" in modes,
+                                     any(m != "tile" for m in modes))
+            if sharded:
+                self._check_plan(plan, n_dm, bool(with_j), bool(with_k),
+                                 okey, e)
+            rank_tasks = 0
+            for entry, mode in zip(plan, modes):
+                t0 = time.perf_counter()
+                rank_tasks += self._run_entry(
+                    entry, mode, dms[tier_dtype(entry["tier"])], acc, e,
+                    with_j, with_k, okey)
+                if self.profile:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    key = (entry["ls"], entry["nprims"], entry["tier"])
+                    self.class_time[key] = (self.class_time.get(key, 0.0)
+                                            + time.perf_counter() - t0)
         self.plan_stats["rank_tasks"] = rank_tasks
         if sharded:
             self._reduce(acc)

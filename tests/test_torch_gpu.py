@@ -436,3 +436,60 @@ def test_entry_step_on_card(cuda):
     tol = (1e-13 if got[2] == "fp64" else 1e-6) * 2.0 ** e
     for g, w in zip(got[:2], want[:2]):
         assert (limbs_to_f64(g, e) - limbs_to_f64(w, e)).abs().max() <= tol
+
+
+# --------------------------------------------------- fuse_group graphs
+FUSE_WATERS = ("O 0 0 0.1174; H -0.757 0 -0.4696; H 0.757 0 -0.4696; "
+               "O 3 0 0.1174; H 2.243 0 -0.4696; H 3.757 0 -0.4696")
+
+
+@pytest.mark.parametrize("accum", ["scatter", "block"])
+def test_fuse_group_graphs_on_card(cuda, accum, tmp_path, monkeypatch):
+    """Two waters/6-31g: ``fuse_group``'s CUDA graphs give the per-entry
+    engine's J/K bit for bit, first and warm, at G = 3 and G = len(plan),
+    and after a rebuild (the density x10); a warm call replays
+    ceil(entries / G) graphs and makes no Python launch of A or D; a
+    call with another density under the same key (0.9 dm) replays the
+    same graphs, captures nothing, and equals the per-entry J/K of that
+    density; every key and plan captures into the engine's one pool."""
+    from joltqc_tpu_torch.mol import Molecule
+    from joltqc_tpu_torch.mol.layout import BasisLayout
+    from joltqc_tpu_torch.scf import JKEngine
+
+    monkeypatch.setenv("JQC_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("JQC_PLAN_CACHE", "0")
+    lay = BasisLayout(Molecule.from_atom_string(FUSE_WATERS, basis="6-31g"))
+    a = np.random.default_rng(5).uniform(-1, 1, (lay.mol.nao,) * 2)
+    ref = JKEngine(lay, device=cuda, accum=accum)
+    eng = JKEngine(lay, device=cuda, accum=accum)
+    pool = None
+    for scale in (1.0, 10.0):
+        dm = scale * (a + a.T)
+        want = ref.get_jk(dm)
+        want2 = ref.get_jk(0.9 * dm)
+        old = eng._plan
+        for G in (3, None):
+            eng.fuse_group = G or len(ref._plan)
+            caps = eng.timing.get("graph_captures", 0)
+            got = eng.get_jk(dm)
+            assert eng._plan is not old or scale == 1.0
+            n = len(eng._plan)
+            groups = -(-n // eng.fuse_group)
+            assert eng.timing["graph_captures"] - caps == groups
+            assert np.array_equal(got[0], want[0])
+            assert np.array_equal(got[1], want[1])
+            reps = eng.timing.get("graph_replays", 0)
+            launches = (eri_chunk.launches, accum_block_chunk.launches)
+            got = eng.get_jk(dm)
+            assert eng.timing["graph_replays"] - reps == groups
+            assert (eri_chunk.launches, accum_block_chunk.launches) == launches
+            assert np.array_equal(got[0], want[0])
+            assert np.array_equal(got[1], want[1])
+            caps = eng.timing["graph_captures"]
+            got = eng.get_jk(0.9 * dm)
+            assert eng.timing["graph_captures"] == caps
+            assert eng.timing["graph_replays"] - reps == 2 * groups
+            assert np.array_equal(got[0], want2[0])
+            assert np.array_equal(got[1], want2[1])
+            pool = pool or eng._graph_pool
+            assert pool is not None and eng._graph_pool == pool
