@@ -29,6 +29,7 @@ from functools import lru_cache
 import numpy as np
 
 from ..mol.molecule import Molecule
+from ..utils.trace import span
 from .radii import bragg_radius
 
 
@@ -179,7 +180,9 @@ class Grids:
 
     Attributes after build(): ``coords`` (N,3) Bohr, ``weights`` (N,),
     both padded to a multiple of ``block`` (pad weights are 0) and sorted
-    into spatial boxes for AO-screening locality.
+    into spatial boxes for AO-screening locality.  ``timing`` adds the
+    host wall seconds of the spans build_s and becke_s (the Becke
+    weights inside it; ``utils/trace.py``).
     """
 
     def __init__(
@@ -210,6 +213,7 @@ class Grids:
         self.prune = prune
         self.coords = None
         self.weights = None
+        self.timing: dict = {}
 
     def _angular_rule(self, div: int):
         """Angular nodes/weights for one prune tier (degree divisor)."""
@@ -228,6 +232,10 @@ class Grids:
         return angular_product_grid(nt, nph)
 
     def build(self):
+        with span(self.timing, "grids.build"):
+            return self._build()
+
+    def _build(self):
         mol = self.mol
         zs = mol.atom_charges
         radii = np.array([bragg_radius(z) for z in zs])
@@ -283,7 +291,8 @@ class Grids:
         w_quad = np.concatenate(w_all)
         owner = np.concatenate(owner)
 
-        pw = becke_weights(mol.coords, radii, points, owner)
+        with span(self.timing, "grids.becke"):
+            pw = becke_weights(mol.coords, radii, points, owner)
         weights = w_quad * pw
 
         # drop negligible points, sort into 2-Bohr boxes for locality

@@ -9,8 +9,9 @@ of ``ops/eri.py::class_libraries``.  The libraries go into
 a hash of the source, its flags and the shared headers (``csrc/*.cuh``),
 so a checkout builds everything it runs from its own sources.
 ``build_all`` starts one nvcc per missing library at once and keeps each
-one's wall seconds in ``build_seconds``; the first ``load`` of a missing
-library builds every missing one that way.
+one's wall seconds in ``build_seconds``, the wait for them in the span
+``jqc.cuda.build`` (a profiler range only); the first ``load`` of a
+missing library builds every missing one that way.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import threading
 import time
 
 import torch
+
+from ..utils.trace import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -121,10 +124,11 @@ def build_all(names=None, verbose=False):
 
     waiters = [threading.Thread(target=wait, args=(name, proc))
                for name, (proc, _, _) in procs.items()]
-    for w in waiters:
-        w.start()
-    for w in waiters:
-        w.join()
+    with span(None, "cuda.build"):
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
     failed = []
     for name, (proc, tmp, so) in procs.items():
         out = logs[name]

@@ -106,13 +106,13 @@ from __future__ import annotations
 import hashlib
 import json
 import numbers
-import time
 
 import numpy as np
 import torch
 
 from ..utils import plancache
 from ..utils.autotune import tuned_accum, tuned_chunk
+from ..utils.trace import add, span
 
 from ..mol.layout import BasisLayout
 from ..ops.accum import (
@@ -155,11 +155,6 @@ _CENTER = {"a": 0, "b": 1, "c": 2, "d": 3}
 
 def _nf(l):
     return len(cart_components(l))
-
-
-def _add(counts, **kv):
-    for k, v in kv.items():
-        counts[k] = counts.get(k, 0) + v
 
 
 def tile_entry(classes, tile_w, ls, nprims, tier, cls_idx, idx, w, bound):
@@ -334,9 +329,12 @@ class JKEngine:
         self._incr = {}
         self._plan = None
         self.plan_stats: dict = {}
-        # host wall seconds of the plan builds and the last Fock build,
-        # the limb reduction's seconds and bytes (with a group), and plan
-        # builds per cache key (("full" | bucket, omega))
+        # counts and the summed host wall seconds of the spans
+        # (utils/trace.py): the Fock builds' prepare_s, launch_s, drain_s,
+        # unfold_s; the plan's plan_build_s (schwarz_q_s, screen_s,
+        # layout_s inside it), plan_load_s, plan_save_s, upload_s; the
+        # graphs' and the reduction's; and plan builds per cache key
+        # (("full" | bucket, omega))
         self.timing: dict = {}
         self.plan_builds: dict = {}
         # profile=True: the card is synchronised after each entry, and the
@@ -513,33 +511,36 @@ class JKEngine:
         Disk cache (utils/plancache.py::q_path): q is saved with the
         stable ``argsort(-q)`` order, which a load re-applies to i_loc,
         j_loc and diag, so the pairs end in ``sort_pairs_by_q``'s order;
-        the omega variants are stored aligned to that sorted order."""
+        the omega variants are stored aligned to that sorted order.  A
+        computation or load adds to ``timing['schwarz_q_s']``."""
         omega = float(omega or 0.0)
         if pc.q_log is None:
-            path = plancache.q_path(self, pc, 0.0)
-            got = plancache.load_arrays(path, ("q", "order"), pc.npair)
-            if got is not None:
-                q, order = got
-                pc.i_loc, pc.j_loc = pc.i_loc[order], pc.j_loc[order]
-                pc.diag = pc.diag[order]
-                pc.q_log = q
-            else:
-                pc.q_log = self._q_raw(pc)
-                order = np.argsort(-pc.q_log, kind="stable")
-                sort_pairs_by_q(pc)
-                if self.rank == 0:
-                    plancache.save_arrays(path, q=pc.q_log, order=order)
+            with span(self.timing, "jk.schwarz_q"):
+                path = plancache.q_path(self, pc, 0.0)
+                got = plancache.load_arrays(path, ("q", "order"), pc.npair)
+                if got is not None:
+                    q, order = got
+                    pc.i_loc, pc.j_loc = pc.i_loc[order], pc.j_loc[order]
+                    pc.diag = pc.diag[order]
+                    pc.q_log = q
+                else:
+                    pc.q_log = self._q_raw(pc)
+                    order = np.argsort(-pc.q_log, kind="stable")
+                    sort_pairs_by_q(pc)
+                    if self.rank == 0:
+                        plancache.save_arrays(path, q=pc.q_log, order=order)
         if omega == 0.0:
             return pc.q_log
         if omega not in pc.q_omega:
-            path = plancache.q_path(self, pc, omega)
-            got = plancache.load_arrays(path, ("q",), pc.npair)
-            if got is not None:
-                pc.q_omega[omega] = got[0]
-            else:
-                pc.q_omega[omega] = self._q_raw(pc, omega)
-                if self.rank == 0:
-                    plancache.save_arrays(path, q=pc.q_omega[omega])
+            with span(self.timing, "jk.schwarz_q"):
+                path = plancache.q_path(self, pc, omega)
+                got = plancache.load_arrays(path, ("q",), pc.npair)
+                if got is not None:
+                    pc.q_omega[omega] = got[0]
+                else:
+                    pc.q_omega[omega] = self._q_raw(pc, omega)
+                    if self.rank == 0:
+                        plancache.save_arrays(path, q=pc.q_omega[omega])
         return pc.q_omega[omega]
 
     # --------------------------------------------------------------- plan
@@ -577,60 +578,67 @@ class JKEngine:
                 c = [self.classes[k] for k in (p1.ci, p1.cj, p2.ci, p2.cj)]
                 ls = tuple(x.l for x in c)
                 nprims = tuple(x.nprim for x in c)
-                tier_data = None  # [(tier, t1, t2, w, dqmax)]
-                if dm_cond_log is not None:
-                    from ..native import screen_tasks_native
+                # the attenuated bounds outside the screen's span
+                qw1, qw2 = ((self._ensure_q(p1, omega),
+                             self._ensure_q(p2, omega)) if refine
+                            else (None, None))
+                with span(self.timing, "jk.screen"):
+                    tier_data = None  # [(tier, t1, t2, w, dqmax)]
+                    if dm_cond_log is not None:
+                        from ..native import screen_tasks_native
 
-                    res = screen_tasks_native(
-                        p1.q_log, p2.q_log,
-                        self._ensure_q(p1, omega), self._ensure_q(p2, omega),
-                        c[0].shell_ids[p1.i_loc], c[1].shell_ids[p1.j_loc],
-                        c[2].shell_ids[p2.i_loc], c[3].shell_ids[p2.j_loc],
-                        p1.diag, p2.diag, dm_cond_log, same,
-                        log32, log64, log32_abs, log64_abs,
-                    )
-                    if res is not None:
-                        f32t, df64t, cand, cand64 = res
-                        stats["cand"] += cand
-                        stats["cand64"] += cand64
-                        tier_data = [("fp64",) + df64t, ("f32",) + f32t]
-                if tier_data is None:
-                    t1, t2, w, tier64 = build_quartet_tasks(
-                        p1, p2, same, log32, log64
-                    )
-                    if len(t1) == 0:
-                        continue
-                    if refine:
-                        stats["cand"] += len(t1)
-                        stats["cand64"] += int(tier64.sum())
-                        qsum = (self._ensure_q(p1, omega)[t1]
-                                + self._ensure_q(p2, omega)[t2])
-                        if dm_cond_log is not None:
-                            D = dm_cond_log
-                            i = c[0].shell_ids[p1.i_loc[t1]]
-                            j = c[1].shell_ids[p1.j_loc[t1]]
-                            k = c[2].shell_ids[p2.i_loc[t2]]
-                            ll = c[3].shell_ids[p2.j_loc[t2]]
-                            dmx = np.maximum.reduce(
-                                [D[i, j], D[k, ll], D[i, k], D[i, ll],
-                                 D[j, k], D[j, ll]]
-                            )
+                        res = screen_tasks_native(
+                            p1.q_log, p2.q_log, qw1, qw2,
+                            c[0].shell_ids[p1.i_loc],
+                            c[1].shell_ids[p1.j_loc],
+                            c[2].shell_ids[p2.i_loc],
+                            c[3].shell_ids[p2.j_loc],
+                            p1.diag, p2.diag, dm_cond_log, same,
+                            log32, log64, log32_abs, log64_abs,
+                        )
+                        if res is not None:
+                            f32t, df64t, cand, cand64 = res
+                            stats["cand"] += cand
+                            stats["cand64"] += cand64
+                            tier_data = [("fp64",) + df64t,
+                                         ("f32",) + f32t]
+                    if tier_data is None:
+                        t1, t2, w, tier64 = build_quartet_tasks(
+                            p1, p2, same, log32, log64
+                        )
+                        if len(t1) == 0:
+                            continue
+                        if refine:
+                            stats["cand"] += len(t1)
+                            stats["cand64"] += int(tier64.sum())
+                            qsum = qw1[t1] + qw2[t2]
+                            if dm_cond_log is not None:
+                                D = dm_cond_log
+                                i = c[0].shell_ids[p1.i_loc[t1]]
+                                j = c[1].shell_ids[p1.j_loc[t1]]
+                                k = c[2].shell_ids[p2.i_loc[t2]]
+                                ll = c[3].shell_ids[p2.j_loc[t2]]
+                                dmx = np.maximum.reduce(
+                                    [D[i, j], D[k, ll], D[i, k], D[i, ll],
+                                     D[j, k], D[j, ll]]
+                                )
+                            else:
+                                dmx = np.full(len(t1), logdm, np.float32)
+                            dq = qsum + dmx
+                            keep = dq > log32_abs
+                            t1, t2, w = t1[keep], t2[keep], w[keep]
+                            dq = dq[keep]
+                            tier64 = dq > log64_abs
                         else:
-                            dmx = np.full(len(t1), logdm, np.float32)
-                        dq = qsum + dmx
-                        keep = dq > log32_abs
-                        t1, t2, w = t1[keep], t2[keep], w[keep]
-                        dq = dq[keep]
-                        tier64 = dq > log64_abs
-                    else:
-                        dq = p1.q_log[t1] + p2.q_log[t2] + logdm
-                    tier_data = []
-                    for tier, sel in (("fp64", tier64), ("f32", ~tier64)):
-                        if int(sel.sum()):
-                            tier_data.append(
-                                (tier, t1[sel], t2[sel], w[sel],
-                                 float(dq[sel].max()))
-                            )
+                            dq = p1.q_log[t1] + p2.q_log[t2] + logdm
+                        tier_data = []
+                        for tier, sel in (("fp64", tier64),
+                                          ("f32", ~tier64)):
+                            if int(sel.sum()):
+                                tier_data.append(
+                                    (tier, t1[sel], t2[sel], w[sel],
+                                     float(dq[sel].max()))
+                                )
                 ntot = sum(len(td[1]) for td in tier_data)
                 if ntot == 0:
                     continue
@@ -651,12 +659,13 @@ class JKEngine:
                         continue
                     bound_log = dmax + np.log(2.0 * nf_sum) + 0.5
                     bound = np.float32(np.exp(min(bound_log, 80.0)))
-                    idx = np.stack([p1.i_loc[s1], p1.j_loc[s1],
-                                    p2.i_loc[s2], p2.j_loc[s2]])
-                    entry = self._entry(
-                        ls, nprims, tier, (p1.ci, p1.cj, p2.ci, p2.cj),
-                        idx, sw, float(bound),
-                    )
+                    with span(self.timing, "jk.layout"):
+                        idx = np.stack([p1.i_loc[s1], p1.j_loc[s1],
+                                        p2.i_loc[s2], p2.j_loc[s2]])
+                        entry = self._entry(
+                            ls, nprims, tier, (p1.ci, p1.cj, p2.ci, p2.cj),
+                            idx, sw, float(bound),
+                        )
                     stats["by_accum"][entry["accum"]] += entry["ntasks"]
                     plan.append(entry)
         self.plan_stats = stats
@@ -699,50 +708,38 @@ class JKEngine:
                                             float(omega or 0.0))
         return self._plan
 
-    def _timed_build(self, key, logdm, Dm, okey):
-        """``_build_plan_cached`` with its counts in ``timing``:
-        plan_builds / plan_build_s count builds only, plan_loads /
-        plan_load_s loads from disk (the upload to the device included);
-        ``plan_builds`` counts builds per cache key."""
-        t0 = time.perf_counter()
-        plan, build_s = self._build_plan_cached(logdm, Dm, okey)
-        if build_s is None:
-            _add(self.timing, plan_load_s=time.perf_counter() - t0,
-                 plan_loads=1)
-        else:
-            _add(self.timing, plan_build_s=build_s, plan_builds=1)
-            self.plan_builds[key] = self.plan_builds.get(key, 0) + 1
-        return plan
-
-    def _build_plan_cached(self, logdm, Dm, okey):
-        """(plan, seconds of its build, None when loaded): the plan from
-        disk when its key is there (every entry uploaded to the device
-        here), else ``_build_plan``, saved when the build took at least
+    def _build_plan_cached(self, key, logdm, Dm, okey):
+        """The plan from disk when its key is there (every entry uploaded
+        to the device here: plan_loads / plan_load_s in ``timing``), else
+        ``_build_plan`` (plan_builds / plan_build_s, and ``plan_builds``
+        per cache key ``key``), saved when the build took at least
         ``JQC_PLAN_CACHE_MIN_SECS`` (plan_saves / plan_save_s /
-        plan_save_bytes in ``timing``), by rank 0 only.  The environment is
-        read at each call, so a caller can switch the cache between calls.
-        The key holds no rank count: the plan is the same for every R (a
-        launch is split across ranks only when it runs), so one file
-        serves any R."""
-        key = plancache.plan_key(self, logdm, Dm, okey)
-        loaded = plancache.load_plan(key)
+        plan_save_bytes), by rank 0 only.  The environment is read at each
+        call, so a caller can switch the cache between calls.  The disk key
+        holds no rank count: the plan is the same for every R (a launch is
+        split across ranks only when it runs), so one file serves any R."""
+        pkey = plancache.plan_key(self, logdm, Dm, okey)
+        loaded = plancache.load_plan(pkey)
         if loaded is not None:
-            plan, self.plan_stats = loaded
-            for entry in plan:
-                self._entry_dev(entry)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            return plan, None
-        t0 = time.perf_counter()
-        plan = self._build_plan(logdm, Dm, okey)
-        secs = time.perf_counter() - t0
-        if (key is not None and secs >= plancache.min_secs()
-                and self.rank == 0):
-            t1 = time.perf_counter()
-            nbytes = plancache.save_plan(key, plan, self.plan_stats)
-            _add(self.timing, plan_save_s=time.perf_counter() - t1,
-                 plan_saves=int(nbytes > 0), plan_save_bytes=nbytes)
-        return plan, secs
+            with span(self.timing, "jk.plan_load"):
+                plan, self.plan_stats = loaded
+                for entry in plan:
+                    self._entry_dev(entry)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            add(self.timing, plan_loads=1)
+            return plan
+        with span(self.timing, "jk.plan_build") as build:
+            plan = self._build_plan(logdm, Dm, okey)
+        add(self.timing, plan_builds=1)
+        self.plan_builds[key] = self.plan_builds.get(key, 0) + 1
+        if (pkey is not None and self.rank == 0
+                and build.seconds >= plancache.min_secs()):
+            with span(self.timing, "jk.plan_save"):
+                nbytes = plancache.save_plan(pkey, plan, self.plan_stats)
+            add(self.timing, plan_saves=int(nbytes > 0),
+                plan_save_bytes=nbytes)
+        return plan
 
     def _ensure_full_plan(self, D, logdm, okey=0.0):
         """The full-density plan of this omega, rebuilt only when some
@@ -750,8 +747,8 @@ class JKEngine:
         cached = self._plans_full.get(okey)
         if cached is None or np.any(D > cached[1]):
             Dm = (D + 0.7).astype(np.float32)
-            cached = (self._timed_build(("full", okey), logdm + 0.7, Dm,
-                                        okey), Dm)
+            cached = (self._build_plan_cached(("full", okey), logdm + 0.7,
+                                              Dm, okey), Dm)
             self._plans_full[okey] = cached
         return cached[0]
 
@@ -765,7 +762,7 @@ class JKEngine:
         cached = self._plans.get((b, okey))
         if cached is None or np.any(D > cached[1]):
             Dm = np.minimum(D + 0.7, bound).astype(np.float32)
-            cached = (self._timed_build((b, okey), bound, Dm, okey), Dm)
+            cached = (self._build_plan_cached((b, okey), bound, Dm, okey), Dm)
             self._plans[(b, okey)] = cached
         return cached[0]
 
@@ -774,9 +771,12 @@ class JKEngine:
         a host check that every index lies in its class table): idx (4, n)
         int32, w (n,) float32 and, for a block entry, gslot (n,) and tb4
         (nchunk, G, 4) int32; arrays a plan file narrowed
-        (plancache._narrow) are widened back on the way."""
+        (plancache._narrow) are widened back on the way.  The upload adds
+        to ``timing['upload_s']``."""
         dev = entry.get("_dev")
-        if dev is None:
+        if dev is not None:
+            return dev
+        with span(self.timing, "jk.upload"):
             idx = entry["idx"]
             for k, ci in enumerate(entry["cls_idx"]):
                 n = self.classes[ci].nshell
@@ -980,13 +980,12 @@ class JKEngine:
             for g0 in starts:
                 run(g0, st)
                 if on_card:
-                    t0 = time.perf_counter()
-                    graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graph, pool=self._graph_pool):
-                        run(g0, st)
+                    with span(self.timing, "jk.graph_capture"):
+                        graph = torch.cuda.CUDAGraph()
+                        with torch.cuda.graph(graph, pool=self._graph_pool):
+                            run(g0, st)
                     st["graphs"].append(graph)
-                    _add(self.timing, graph_captures=1,
-                         graph_capture_s=time.perf_counter() - t0)
+                    add(self.timing, graph_captures=1)
             states[key] = st
             return st["acc"]
         for dt, buf in st["dms"].items():
@@ -997,7 +996,7 @@ class JKEngine:
         if on_card:
             for graph in st["graphs"]:
                 graph.replay()
-            _add(self.timing, graph_replays=len(st["graphs"]))
+            add(self.timing, graph_replays=len(st["graphs"]))
         else:
             for g0 in starts:
                 run(g0, st)
@@ -1055,23 +1054,22 @@ class JKEngine:
         bytes)."""
         import torch.distributed as dist
 
-        t0 = time.perf_counter()
         host = dist.get_backend(self.group) == "gloo"
         nbytes = 0
-        for a in acc:
-            if a is None:
-                continue
-            if host and a.device.type != "cpu":
-                h = a.cpu()
-                dist.all_reduce(h, group=self.group)
-                a.copy_(h)
-            else:
-                dist.all_reduce(a, group=self.group)
-            nbytes += a.numel() * a.element_size()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        _add(self.timing, reduce_s=time.perf_counter() - t0,
-             reduce_bytes=nbytes)
+        with span(self.timing, "jk.reduce"):
+            for a in acc:
+                if a is None:
+                    continue
+                if host and a.device.type != "cpu":
+                    h = a.cpu()
+                    dist.all_reduce(h, group=self.group)
+                    a.copy_(h)
+                else:
+                    dist.all_reduce(a, group=self.group)
+                nbytes += a.numel() * a.element_size()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        add(self.timing, reduce_bytes=nbytes)
 
     def _run_plan(self, dm_int, with_j, with_k, omega=0.0, bucketed=False,
                   cond=None, plan=None):
@@ -1081,59 +1079,71 @@ class JKEngine:
         group, this rank's slices are summed with the others' in limb form
         before the decode; ``plan_stats['rank_tasks']`` is the tasks this
         rank ran of the plan, and with ``profile`` ``class_time`` is this
-        rank's own."""
+        rank's own.  Spans (``timing``): prepare_s (the plan's check or
+        build, the density's upload), launch_s (the launches: host time,
+        the card runs behind it), drain_s (the decode, the fold and the
+        copy to the host, which waits for the card)."""
         nao = self.nao
         stacked = dm_int.ndim == 3
         n_dm = int(dm_int.shape[0]) if stacked else 1
         okey = float(omega or 0.0)
-        if plan is None:
-            if cond is None:
-                cond = np.maximum.reduce(
-                    [self.layout.dm_cond(d)
-                     for d in dm_int.reshape(n_dm, nao, nao)])
-            D = np.log(np.maximum(cond, 1e-30)).astype(np.float32)
-            if bucketed:
-                plan = self._ensure_bucket_plan(D, float(D.max()), okey)
-            else:
-                plan = self._plan = self._ensure_full_plan(
-                    D, float(D.max()), okey)
         dev = self.device
-        dm64 = torch.as_tensor(dm_int, dtype=torch.float64,
-                               device=dev).reshape(n_dm, nao, nao)
-        dms = {torch.float64: dm64.contiguous(),
-               torch.float32: dm64.float().contiguous()}
-        # one exponent for the whole build: every limb sum adds as integers
-        e = max((bound_exponent(x["bound"]) for x in plan), default=0)
-        # block reductions are single-dm: a stack runs them as scatter
-        modes = ["scatter" if n_dm > 1 and x["accum"] == "block"
-                 else x["accum"] for x in plan]
-        sharded = self.group is not None and self._split is None
-        G = self.fuse_group
-        if G is not None and not (isinstance(G, numbers.Integral) and G >= 1):
-            raise ValueError(f"fuse_group {G!r}: None or an int >= 1")
-        if (plan and G is not None and not self.profile
-                and self.group is None and self._split is None
-                and "tile" not in modes):
-            acc = self._run_groups(plan, modes, dms, e, with_j, with_k, okey)
-            rank_tasks = sum(x["ntasks"] for x in plan)
-        else:
-            acc = self._accumulators(n_dm, with_j, with_k, "tile" in modes,
-                                     any(m != "tile" for m in modes))
-            if sharded:
-                self._check_plan(plan, n_dm, bool(with_j), bool(with_k),
-                                 okey, e)
-            rank_tasks = 0
-            for entry, mode in zip(plan, modes):
-                t0 = time.perf_counter()
-                rank_tasks += self._run_entry(
-                    entry, mode, dms[tier_dtype(entry["tier"])], acc, e,
-                    with_j, with_k, okey)
-                if self.profile:
-                    if dev.type == "cuda":
-                        torch.cuda.synchronize(dev)
-                    key = (entry["ls"], entry["nprims"], entry["tier"])
-                    self.class_time[key] = (self.class_time.get(key, 0.0)
-                                            + time.perf_counter() - t0)
+        with span(self.timing, "jk.prepare"):
+            if plan is None:
+                if cond is None:
+                    cond = np.maximum.reduce(
+                        [self.layout.dm_cond(d)
+                         for d in dm_int.reshape(n_dm, nao, nao)])
+                D = np.log(np.maximum(cond, 1e-30)).astype(np.float32)
+                if bucketed:
+                    plan = self._ensure_bucket_plan(D, float(D.max()), okey)
+                else:
+                    plan = self._plan = self._ensure_full_plan(
+                        D, float(D.max()), okey)
+            dm64 = torch.as_tensor(dm_int, dtype=torch.float64,
+                                   device=dev).reshape(n_dm, nao, nao)
+            dms = {torch.float64: dm64.contiguous(),
+                   torch.float32: dm64.float().contiguous()}
+            # one exponent for the whole build: every limb sum adds as
+            # integers
+            e = max((bound_exponent(x["bound"]) for x in plan), default=0)
+            # block reductions are single-dm: a stack runs them as scatter
+            modes = ["scatter" if n_dm > 1 and x["accum"] == "block"
+                     else x["accum"] for x in plan]
+            sharded = self.group is not None and self._split is None
+            G = self.fuse_group
+            if G is not None and not (isinstance(G, numbers.Integral)
+                                      and G >= 1):
+                raise ValueError(f"fuse_group {G!r}: None or an int >= 1")
+            grouped = (plan and G is not None and not self.profile
+                       and self.group is None and self._split is None
+                       and "tile" not in modes)
+            if not grouped:
+                acc = self._accumulators(n_dm, with_j, with_k,
+                                         "tile" in modes,
+                                         any(m != "tile" for m in modes))
+                if sharded:
+                    self._check_plan(plan, n_dm, bool(with_j), bool(with_k),
+                                     okey, e)
+        with span(self.timing, "jk.launch"):
+            if grouped:
+                acc = self._run_groups(plan, modes, dms, e, with_j, with_k,
+                                       okey)
+                rank_tasks = sum(x["ntasks"] for x in plan)
+            else:
+                rank_tasks = 0
+                for entry, mode in zip(plan, modes):
+                    args = (entry, mode, dms[tier_dtype(entry["tier"])], acc,
+                            e, with_j, with_k, okey)
+                    if not self.profile:
+                        rank_tasks += self._run_entry(*args)
+                        continue
+                    # the entry's wall, the card synchronised
+                    with span(self.class_time, "jk.class",
+                              (entry["ls"], entry["nprims"], entry["tier"])):
+                        rank_tasks += self._run_entry(*args)
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
         self.plan_stats["rank_tasks"] = rank_tasks
         if sharded:
             self._reduce(acc)
@@ -1141,7 +1151,6 @@ class JKEngine:
             self._limbs.append(
                 (tuple(None if a is None else a.clone() for a in acc), e))
         EJ, EK, AJ, AK = acc
-        R = self._efold()
         shape = (n_dm, nao, nao) if stacked else (nao, nao)
 
         def total(on, flat, ext):
@@ -1151,13 +1160,16 @@ class JKEngine:
             if flat is not None:
                 out = limbs_to_f64(flat[:-1], e).view(n_dm, nao, nao)
             if ext is not None:
+                R = self._efold()
                 fold = R.T @ limbs_to_f64(ext, e) @ R
                 out = fold if out is None else out + fold
             if out is None:  # an empty plan
                 return np.zeros(shape)
             return out.reshape(shape).cpu().numpy()
 
-        return total(with_j, AJ, EJ), total(with_k, AK, EK)
+        with span(self.timing, "jk.drain"):
+            out = total(with_j, AJ, EJ), total(with_k, AK, EK)
+        return out
 
     def get_jk(self, dm_mol, with_j=True, with_k=True, omega=0.0, hermi=1,
                bucketed=False, plan=None):
@@ -1171,15 +1183,20 @@ class JKEngine:
         P - P^T.  ``bucketed``: take the plan from the per-density-bound
         buckets of the incremental path.  ``plan``: a task plan to run
         instead of the engine's own screened plan (e.g. one carried
-        across by convert.plan_from_numpy)."""
-        t0 = time.perf_counter()
-        out = self._get_jk(np.asarray(dm_mol, np.float64), with_j, with_k,
-                           float(omega or 0.0), hermi, bucketed, plan)
-        self.timing["get_jk_s"] = time.perf_counter() - t0
-        return out
+        across by convert.plan_from_numpy).
+
+        The call is the span ``jqc.jk.get_jk`` (a profiler range only),
+        tiled by the spans prepare, launch, drain (``_run_plan``) and
+        unfold (P +- P^T, the mol basis), each added to ``timing``
+        (``utils/trace.py``)."""
+        with span(None, "jk.get_jk"):
+            return self._get_jk(np.asarray(dm_mol, np.float64), with_j,
+                                with_k, float(omega or 0.0), hermi, bucketed,
+                                plan)
 
     def _get_jk(self, dm, with_j, with_k, omega, hermi, bucketed, plan):
         lay = self.layout
+        tm = self.timing
 
         def is_sym(d):
             return hermi == 1 or (np.abs(d - d.T).max()
@@ -1189,14 +1206,19 @@ class JKEngine:
             return lay.mat_to_mol(p + sign * p.T)
 
         if dm.ndim == 3:
-            if self.accum != "block" and all(is_sym(d) for d in dm):
+            with span(tm, "jk.prepare"):
                 # batched: the ERIs of every chunk are computed once and
                 # contracted with all n_dm densities
-                dms_int = np.stack([lay.dm_to_internal(d) for d in dm])
+                batched = (self.accum != "block"
+                           and all(is_sym(d) for d in dm))
+                if batched:
+                    dms_int = np.stack([lay.dm_to_internal(d) for d in dm])
+            if batched:
                 pj, pk = self._run_plan(dms_int, with_j, with_k, omega,
                                         bucketed, plan=plan)
-                vj = np.stack([unfold(p) for p in pj]) if with_j else None
-                vk = np.stack([unfold(p) for p in pk]) if with_k else None
+                with span(tm, "jk.unfold"):
+                    vj = np.stack([unfold(p) for p in pj]) if with_j else None
+                    vk = np.stack([unfold(p) for p in pk]) if with_k else None
                 return vj, vk
             outs = [self._get_jk(d, with_j, with_k, omega, hermi, bucketed,
                                  plan) for d in dm]
@@ -1204,29 +1226,36 @@ class JKEngine:
             vk = np.stack([o[1] for o in outs]) if with_k else None
             return vj, vk
 
-        sym = is_sym(dm)
-        dms_int = lay.dm_to_internal(dm if sym else 0.5 * (dm + dm.T))
-        cond = lay.dm_cond(dms_int)
-        dma_int = None
-        if not sym and with_k:
-            dma_int = lay.dm_to_internal(0.5 * (dm - dm.T))
-            # one shared density bound for both passes, so the plan is
-            # not rebuilt twice per call
-            cond = np.maximum(cond, lay.dm_cond(dma_int))
-        if dma_int is not None and self.accum != "block":
+        with span(tm, "jk.prepare"):
+            sym = is_sym(dm)
+            dms_int = lay.dm_to_internal(dm if sym else 0.5 * (dm + dm.T))
+            cond = lay.dm_cond(dms_int)
+            dma_int = None
+            if not sym and with_k:
+                dma_int = lay.dm_to_internal(0.5 * (dm - dm.T))
+                # one shared density bound for both passes, so the plan is
+                # not rebuilt twice per call
+                cond = np.maximum(cond, lay.dm_cond(dma_int))
             # the symmetric and antisymmetric passes as one stack
-            pj, pk = self._run_plan(np.stack([dms_int, dma_int]), with_j,
-                                    True, omega, bucketed, cond, plan)
-            return (unfold(pj[0]) if with_j else None,
-                    unfold(pk[0]) + unfold(pk[1], -1.0))
+            pair = (np.stack([dms_int, dma_int])
+                    if dma_int is not None and self.accum != "block"
+                    else None)
+        if pair is not None:
+            pj, pk = self._run_plan(pair, with_j, True, omega, bucketed, cond,
+                                    plan)
+            with span(tm, "jk.unfold"):
+                return (unfold(pj[0]) if with_j else None,
+                        unfold(pk[0]) + unfold(pk[1], -1.0))
         vj, vk = self._run_plan(dms_int, with_j, with_k, omega, bucketed,
                                 cond, plan)
-        out_j = unfold(vj) if with_j else None
-        out_k = unfold(vk) if with_k else None
+        with span(tm, "jk.unfold"):
+            out_j = unfold(vj) if with_j else None
+            out_k = unfold(vk) if with_k else None
         if dma_int is not None:
             _, pka = self._run_plan(dma_int, False, True, omega, bucketed,
                                     cond, plan)
-            out_k = out_k + unfold(pka, -1.0)
+            with span(tm, "jk.unfold"):
+                out_k = out_k + unfold(pka, -1.0)
         return out_j, out_k
 
     # ----------------------------------------------------- incremental

@@ -23,8 +23,6 @@ the 0.6 fill rule) is the JAX package's numpy code.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
 from ..dft.grids import Grids
@@ -33,6 +31,7 @@ from ..dft.numint import NumInt, _blocked, eval_rho_all, eval_vxc_mat
 from ..dft.screening import GridScreening, eval_rho_screened, eval_vxc_screened
 from ..dft.vv10 import nlc_exc_vxc
 from ..dft.xc import eval_xc, nlc_coeff, rsh_coeff, xc_family
+from ..utils.trace import span
 from .hf import RHF
 
 
@@ -87,7 +86,8 @@ class RKS(RHF):
         self._scr = None
         self._ecoul = 0.0
         self._exc = 0.0
-        # host wall seconds of get_veff's DFT layer and of its J/K calls
+        # host wall seconds of get_veff's DFT layer and of its J/K calls,
+        # and of the layer's spans (get_veff)
         self.veff_time = {"dft": 0.0, "jk": 0.0}
 
     def _block_bounds(self):
@@ -166,7 +166,36 @@ class RKS(RHF):
         return bulk(wv, sel)
 
     def get_veff(self, dm):
-        t0 = time.perf_counter()
+        """V_eff = V_xc + J - K_eff / 2 in the mol basis; E_coul and E_xc
+        are left for ``energy_elec``.  ``veff_time`` adds the host wall of
+        the DFT layer (``dft``) and of its J/K calls (``jk``), and inside
+        the layer the spans rho_s, xc_s, rows_s (the host numpy: sigma,
+        the E_xc and electron sums, the potential rows), vxc_s and
+        to_mol_s (``utils/trace.py``; profiler ranges ``jqc.dft.*``)."""
+        tm = self.veff_time
+        with span(tm, "dft.layer", "dft"):
+            vxc, exc = self._veff_xc(dm, tm)
+        with span(tm, "dft.jk", "jk"):
+            jk_call = (self.jk.get_jk_incr if self.incremental
+                       else self.jk.get_jk)
+            if self.hyb > 0 or self.omega > 0:
+                vj, vk = jk_call(dm)
+                vk_eff = self.hyb * vk
+                if self.omega > 0 and abs(self.alpha - self.hyb) > 1e-12:
+                    _, vk_lr = jk_call(dm, with_j=False, omega=self.omega)
+                    vk_eff = vk_eff + (self.alpha - self.hyb) * vk_lr
+                veff = vxc + vj - 0.5 * vk_eff
+                exc -= 0.25 * float(np.einsum("ij,ij->", dm, vk_eff))
+            else:
+                vj, _ = jk_call(dm, with_k=False)
+                veff = vxc + vj
+            self._ecoul = 0.5 * float(np.einsum("ij,ij->", dm, vj))
+        self._exc = exc
+        return veff
+
+    def _veff_xc(self, dm, tm):
+        """(V_xc in the mol basis, E_xc) of ``get_veff``, its spans added
+        to ``tm``."""
         if self.grids.coords is None:
             self.grids.build()
         lay = self.layout
@@ -180,32 +209,35 @@ class RKS(RHF):
         cache = self._dft_cache if self.incremental else None
         if cache is not None and cache.get("fam") != rho_fam:
             cache = None
-        if cache is not None:
-            ddm = dm_int - cache["dm_int"]
-            bb = self._block_bounds()
-            dlog = np.log(max(np.abs(ddm).max(), 1e-300)) + np.log(
-                max(self.layout.nao_int, 1)
+        with span(tm, "dft.rho"):
+            if cache is not None:
+                ddm = dm_int - cache["dm_int"]
+                bb = self._block_bounds()
+                dlog = np.log(max(np.abs(ddm).max(), 1e-300)) + np.log(
+                    max(self.layout.nao_int, 1)
+                )
+                sel = np.nonzero(bb + dlog > np.log(self.incr_dft_thresh))[0]
+                self.dft_block_evals += len(sel)
+                rho = cache["rho"] + (
+                    self._rho_eval(ddm, rho_fam, sel) if len(sel) else 0.0)
+            else:
+                rho = self._rho_eval(dm_int, rho_fam)
+                if self.incremental:
+                    self.dft_block_evals += len(self._block_bounds())
+        with span(tm, "dft.rows"):
+            sigma = (rho[1:4] ** 2).sum(axis=0) if need_grad else None
+            tau = rho[4] if fam == "mgga" else None
+        with span(tm, "dft.xc"):
+            e, vr, vs, vt = eval_xc(
+                self.xc, rho[0], sigma if fam != "lda" else None, tau,
+                device=self.device,
             )
-            sel = np.nonzero(bb + dlog > np.log(self.incr_dft_thresh))[0]
-            self.dft_block_evals += len(sel)
-            rho = cache["rho"] + (
-                self._rho_eval(ddm, rho_fam, sel) if len(sel) else 0.0)
-        else:
-            rho = self._rho_eval(dm_int, rho_fam)
-            if self.incremental:
-                self.dft_block_evals += len(self._block_bounds())
-        sigma = (rho[1:4] ** 2).sum(axis=0) if need_grad else None
-        tau = rho[4] if fam == "mgga" else None
-        e, vr, vs, vt = eval_xc(
-            self.xc, rho[0], sigma if fam != "lda" else None, tau,
-            device=self.device,
-        )
-        if fam == "lda":
-            vs = np.zeros_like(vr)
-
-        w = self.grids.weights
-        exc = float(np.sum(w * e))
-        self._nelec_grid = float(np.sum(w * rho[0]))
+        with span(tm, "dft.rows"):
+            if fam == "lda":
+                vs = np.zeros_like(vr)
+            w = self.grids.weights
+            exc = float(np.sum(w * e))
+            self._nelec_grid = float(np.sum(w * rho[0]))
 
         vxc_nlc_int = None
         if self.nlc is not None:
@@ -243,32 +275,35 @@ class RKS(RHF):
                 vr = vr + vr_n
                 vs = vs + vs_n
 
-        if need_grad:
-            wv_rows = [(w * vr)[None, :], 2.0 * (w * vs)[None, :] * rho[1:4]]
-            if fam == "mgga":
-                wv_rows.append((w * vt)[None, :])
-            wv = np.concatenate(wv_rows)
-            vxc_fam = "mgga" if fam == "mgga" else "gga"
-        else:
-            wv = (w * vr)[None, :]
-            vxc_fam = "lda"
+        with span(tm, "dft.rows"):
+            if need_grad:
+                wv_rows = [(w * vr)[None, :],
+                           2.0 * (w * vs)[None, :] * rho[1:4]]
+                if fam == "mgga":
+                    wv_rows.append((w * vt)[None, :])
+                wv = np.concatenate(wv_rows)
+                vxc_fam = "mgga" if fam == "mgga" else "gga"
+            else:
+                wv = (w * vr)[None, :]
+                vxc_fam = "lda"
 
-        if cache is not None and cache.get("vxc_fam") == vxc_fam:
-            dwv = wv - cache["wv"]
-            bb = self._block_bounds()
-            B = self.ni.block
-            nblk = len(bb)
-            dpad = np.zeros((dwv.shape[0], nblk * B))
-            dpad[:, : dwv.shape[1]] = np.abs(dwv)
-            blk_max = dpad.reshape(dwv.shape[0], nblk, B).max(axis=(0, 2))
-            wlog = np.log(np.maximum(blk_max * B, 1e-300))
-            selv = np.nonzero(bb + wlog > np.log(self.incr_dft_thresh))[0]
-            self.dft_block_evals += len(selv)
-            vxc_int = cache["vxc"] + (
-                self._vxc_eval(dwv, vxc_fam, selv) if len(selv) else 0.0
-            )
-        else:
-            vxc_int = self._vxc_eval(wv, vxc_fam)
+        with span(tm, "dft.vxc"):
+            if cache is not None and cache.get("vxc_fam") == vxc_fam:
+                dwv = wv - cache["wv"]
+                bb = self._block_bounds()
+                B = self.ni.block
+                nblk = len(bb)
+                dpad = np.zeros((dwv.shape[0], nblk * B))
+                dpad[:, : dwv.shape[1]] = np.abs(dwv)
+                blk_max = dpad.reshape(dwv.shape[0], nblk, B).max(axis=(0, 2))
+                wlog = np.log(np.maximum(blk_max * B, 1e-300))
+                selv = np.nonzero(bb + wlog > np.log(self.incr_dft_thresh))[0]
+                self.dft_block_evals += len(selv)
+                vxc_int = cache["vxc"] + (
+                    self._vxc_eval(dwv, vxc_fam, selv) if len(selv) else 0.0
+                )
+            else:
+                vxc_int = self._vxc_eval(wv, vxc_fam)
         if self.incremental:
             # cache holds the MAIN-grid vxc only; the separate-grid VV10
             # term is recomputed in full each iteration (coarse = cheap)
@@ -278,26 +313,8 @@ class RKS(RHF):
             )
         if vxc_nlc_int is not None:
             vxc_int = vxc_int + vxc_nlc_int
-        vxc = lay.mat_to_mol(vxc_int)
-        t1 = time.perf_counter()
-
-        jk_call = self.jk.get_jk_incr if self.incremental else self.jk.get_jk
-        if self.hyb > 0 or self.omega > 0:
-            vj, vk = jk_call(dm)
-            vk_eff = self.hyb * vk
-            if self.omega > 0 and abs(self.alpha - self.hyb) > 1e-12:
-                _, vk_lr = jk_call(dm, with_j=False, omega=self.omega)
-                vk_eff = vk_eff + (self.alpha - self.hyb) * vk_lr
-            veff = vxc + vj - 0.5 * vk_eff
-            exc -= 0.25 * float(np.einsum("ij,ij->", dm, vk_eff))
-        else:
-            vj, _ = jk_call(dm, with_k=False)
-            veff = vxc + vj
-        self._ecoul = 0.5 * float(np.einsum("ij,ij->", dm, vj))
-        self._exc = exc
-        self.veff_time["dft"] += t1 - t0
-        self.veff_time["jk"] += time.perf_counter() - t1
-        return veff
+        with span(tm, "dft.to_mol"):
+            return lay.mat_to_mol(vxc_int), exc
 
     def energy_elec(self, dm, h, veff):
         return float(np.einsum("ij,ij->", dm, h)) + self._ecoul + self._exc

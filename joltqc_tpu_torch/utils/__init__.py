@@ -1,2 +1,3 @@
-"""Persistence and tuning of the J/K engine: the plan and Schwarz-q disk
-caches (plancache.py) and the per-device autotune table (autotune.py)."""
+"""Persistence, tuning and tracing of the port: the plan and Schwarz-q
+disk caches (plancache.py), the per-device autotune table (autotune.py)
+and the spans on the counters and the profiler's clock (trace.py)."""

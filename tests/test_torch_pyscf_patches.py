@@ -81,12 +81,13 @@ def test_apply_patches_full_rks_surface(monkeypatch):
 
     apply_patches = tpyscf._apply_patches
     monkeypatch.setattr(tpyscf, "_apply_patches", counting)
-    engines = {id(mf._joltqc_torch["engine"])}
+    # the engines are kept alive, so that a freed one's id cannot come back
+    engines = [mf._joltqc_torch["engine"]]
     for step in (1, 2, 3):
         mf.reset()
         assert mf._reset_calls == step and len(applied) == step
-        engines.add(id(mf._joltqc_torch["engine"]))
-    assert len(engines) == 4 and applied == [mf] * 3
+        engines.append(mf._joltqc_torch["engine"])
+    assert len({id(e) for e in engines}) == 4 and applied == [mf] * 3
     assert mf._joltqc_wrapped
 
 
