@@ -86,14 +86,12 @@ def heavy_shell_pairs(layout, weight_log, cutoff: float):
 
 def _heavy_mask(layout, ish, jsh):
     """(nao, nao) bool: the AO entries of the heavy shell pairs, both
-    orders."""
-    n = layout.nao_int
-    mask = np.zeros((n, n), dtype=bool)
-    al = layout.ao_loc_int
-    for I, J in zip(ish, jsh):
-        mask[al[I]:al[I + 1], al[J]:al[J + 1]] = True
-        mask[al[J]:al[J + 1], al[I]:al[I + 1]] = True
-    return mask
+    orders (a shell-level mask gathered to AO entries)."""
+    shells = np.zeros((layout.nbas, layout.nbas), dtype=bool)
+    shells[ish, jsh] = True
+    shells |= shells.T
+    owner = np.repeat(np.arange(layout.nbas), np.diff(layout.ao_loc_int))
+    return shells[np.ix_(owner, owner)]
 
 
 class _HeavyTier:
@@ -170,9 +168,10 @@ def eval_rho_mixed(ni: NumInt, grids, dm_int, family, layout,
     rows = heavy.shape[1]
     B = ni.block
     full = np.zeros((rows, len(blocks) * B))
-    targets = range(len(blocks)) if block_sel is None else list(block_sel)
-    for k, b in enumerate(targets):
-        full[:, b * B : (b + 1) * B] = heavy[k]
+    targets = (np.arange(len(blocks)) if block_sel is None
+               else np.asarray(block_sel, np.int64))
+    full.reshape(rows, len(blocks), B)[:, targets] = \
+        heavy[: len(targets)].transpose(1, 0, 2)
     return rho + full[:, :N]
 
 
@@ -181,18 +180,26 @@ def eval_vxc_mixed(ni: NumInt, grids, wv, family, layout,
     """V_xc with float32 bulk + float64 overwrite of heavy entries.
 
     ``bulk``: optional float32 bulk evaluator ``bulk(wv, block_sel) ->
-    mat`` (defaults dense; the RKS driver passes the screened evaluator)."""
+    mat`` (defaults dense; the RKS driver passes the screened evaluator).
+    Where every shell pair is heavy the overwrite covers every entry, so
+    the bulk is not evaluated (``ni.tier_counts["vxc_bulk_skipped"]``)."""
     family = _family_arg(family)
     if bulk is None:
-        mat = eval_vxc_mat(ni, grids, wv, family, block_sel=block_sel)
-    else:
-        mat = bulk(wv, block_sel)
+        def bulk(w, sel):
+            return eval_vxc_mat(ni, grids, w, family, block_sel=sel)
+
+    ni.tier_counts["vxc_mixed"] += 1
     # pairing weight: integrated |wv| (the sum the matrix element sees)
     wsum = float(np.sum(np.abs(wv))) + 1e-300
     wlog = np.full((layout.nbas, layout.nbas), np.log(wsum))
     ish, jsh = heavy_shell_pairs(layout, wlog, cutoff_fp64)
     if len(ish) == 0 or (block_sel is not None and len(block_sel) == 0):
-        return mat
+        return bulk(wv, block_sel)
+    if len(ish) == layout.nbas * (layout.nbas + 1) // 2:
+        ni.tier_counts["vxc_bulk_skipped"] += 1
+        mat = np.zeros((layout.nao_int, layout.nao_int))
+    else:
+        mat = bulk(wv, block_sel)
 
     B = ni.block
     blocks, N = _blocked(grids.coords, B)

@@ -186,6 +186,9 @@ class NumInt:
         # widest per-point intermediate: the AO slab or one group's
         # (shells x primitives) exponentials
         self._width = max([self.nao] + [e.size for _, _, e, _, _ in self.gdata])
+        # dft/mixed.py::eval_vxc_mixed's calls, and those that skipped the
+        # float32 bulk because the float64 tier overwrote every entry
+        self.tier_counts = {"vxc_mixed": 0, "vxc_bulk_skipped": 0}
 
     def tables(self, dtype, gdata=None):
         """Device tables (l, coords, exps, coefs) of ``gdata`` (default:

@@ -177,3 +177,122 @@ def test_numint_needs_a_device(setup):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tnumint.NumInt(setup["tl"])
+
+
+# --- the mixed tier's combine against its per-pair / per-block form -----
+
+def _loop_heavy_mask(layout, ish, jsh):
+    """The heavy mask as one pair at a time: both orders of each shell
+    pair's AO block."""
+    n = layout.nao_int
+    mask = np.zeros((n, n), dtype=bool)
+    al = layout.ao_loc_int
+    for I, J in zip(ish, jsh):
+        mask[al[I]:al[I + 1], al[J]:al[J + 1]] = True
+        mask[al[J]:al[J + 1], al[I]:al[I + 1]] = True
+    return mask
+
+
+def _pair_subset(nbas, kind):
+    ii, jj = np.tril_indices(nbas)
+    if kind == "all":
+        keep = np.arange(len(ii))
+    elif kind == "none":
+        keep = np.arange(0)
+    elif kind == "diagonal":
+        keep = np.flatnonzero(ii == jj)
+    else:
+        rng = np.random.default_rng(int(kind[-1]))
+        keep = np.sort(rng.choice(len(ii), len(ii) // 2, replace=False))
+    return ii[keep].astype(np.int32), jj[keep].astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["all", "none", "diagonal", "random0",
+                                  "random1"])
+def test_heavy_mask_matches_pair_loop(setup, kind):
+    tl = setup["tl"]
+    ish, jsh = _pair_subset(tl.nbas, kind)
+    got = tmixed._heavy_mask(tl, ish, jsh)
+    assert got.dtype == bool
+    assert np.array_equal(got, _loop_heavy_mask(tl, ish, jsh))
+
+
+def _vxc_overwrite(s, wv, fam, cutoff, sel):
+    """V_xc as the dense float32 bulk with the float64 tier written over
+    it wherever the heavy mask is set."""
+    tl, tni = s["tl"], s["tni"]
+    mat = tnumint.eval_vxc_mat(tni, s["tg"], wv, fam, block_sel=sel)
+    wsum = float(np.sum(np.abs(wv))) + 1e-300
+    wlog = np.full((tl.nbas, tl.nbas), np.log(wsum))
+    ish, jsh = tmixed.heavy_shell_pairs(tl, wlog, cutoff)
+    blocks, N = tnumint._blocked(s["tg"].coords, tni.block)
+    wv_blocks = tnumint._wv_blocks(wv[:, :N], len(blocks), tni.block)
+    if sel is not None:
+        sub = tnumint._select_blocks(blocks, sel)
+        wv_sub = np.zeros((len(sub),) + wv_blocks.shape[1:])
+        wv_sub[: len(sel)] = wv_blocks[sel]
+        blocks, wv_blocks = sub, wv_sub
+    tier = tmixed._HeavyTier(tni, ish, jsh)
+    vh = tier.vxc(blocks, wv_blocks, fam)
+    cols = np.ix_(tier.cols, tier.cols)
+    heavy = _loop_heavy_mask(tl, ish, jsh)[cols]
+    mat[cols] = np.where(heavy, vh, mat[cols])
+    return mat, len(ish)
+
+
+@pytest.mark.parametrize("sel", [False, True], ids=["full", "block_sel"])
+@pytest.mark.parametrize("cutoff", [1e-300, 100.0], ids=["every_pair",
+                                                         "partial"])
+def test_vxc_mixed_skips_only_a_covered_bulk(setup, cutoff, sel):
+    """At 1e-300 every shell pair is heavy, the tier overwrites every
+    entry and the bulk is skipped; at 100 (gga, this density of wv) 6 of
+    the 15 pairs are heavy and the bulk runs.  Both give the overwrite's
+    bits."""
+    s = setup
+    bs = s["sel"] if sel else None
+    wv = _wv(s, "gga")
+    ref, nheavy = _vxc_overwrite(s, wv, "gga", cutoff, bs)
+    every = cutoff == 1e-300
+    npairs = s["tl"].nbas * (s["tl"].nbas + 1) // 2
+    assert (nheavy == npairs) if every else (0 < nheavy < npairs)
+    counts = dict(s["tni"].tier_counts)
+    got = tmixed.eval_vxc_mixed(s["tni"], s["tg"], wv, "gga", s["tl"],
+                                cutoff, block_sel=bs)
+    assert np.array_equal(got, ref)
+    assert s["tni"].tier_counts == {
+        "vxc_mixed": counts["vxc_mixed"] + 1,
+        "vxc_bulk_skipped": counts["vxc_bulk_skipped"] + every}
+
+
+def _rho_per_block(s, fam, cutoff, sel):
+    """rho rows with the float64 tier's rows written block by block."""
+    tl, tni, dm = s["tl"], s["tni"], s["dm"]
+    D = tl.dm_cond(dm)
+    ish, jsh = tmixed.heavy_shell_pairs(
+        tl, np.log(np.maximum(D, 1e-300)), cutoff)
+    mask = _loop_heavy_mask(tl, ish, jsh)
+    rho = tnumint.eval_rho_all(tni, s["tg"], np.where(mask, 0.0, dm), fam,
+                               block_sel=sel)
+    if sel is not None and len(sel) == 0:
+        return rho
+    B = tni.block
+    blocks, N = tnumint._blocked(s["tg"].coords, B)
+    sub = blocks if sel is None else tnumint._select_blocks(blocks, sel)
+    heavy = tmixed._HeavyTier(tni, ish, jsh).rho(
+        sub, np.where(mask, dm, 0.0), fam)
+    full = np.zeros((heavy.shape[1], len(blocks) * B))
+    targets = range(len(blocks)) if sel is None else list(sel)
+    for k, b in enumerate(targets):
+        full[:, b * B : (b + 1) * B] = heavy[k]
+    return rho + full[:, :N]
+
+
+@pytest.mark.parametrize("sel", ["full", "block_sel", "empty"])
+def test_rho_mixed_matches_per_block_assembly(setup, sel):
+    s = setup
+    bs = {"full": None, "block_sel": s["sel"],
+          "empty": np.array([], np.int64)}[sel]
+    for cutoff in (1e-6, 1.0):
+        got = tmixed.eval_rho_mixed(s["tni"], s["tg"], s["dm"], "gga",
+                                    s["tl"], cutoff, block_sel=bs)
+        assert np.array_equal(got, _rho_per_block(s, "gga", cutoff, bs))
